@@ -1,0 +1,416 @@
+"""Public encoder session of the PyTorch/CUDA port.
+
+    enc = HomerEncoder(cfg, device=torch.device("cuda"))
+    aus = enc.encode_frames(frames, chunk=8)   # Annex-B bytes, one per AU
+    enc.close()
+
+Port of homerhevc_tpu/api.py for the slice this package supports: IDR
+frames through the all-intra wavefront (CU = TU = 32, no split RDO), P
+frames through the fixed-CU device stage, chunked K frames per dispatch with
+the reference planes kept on the device, and host CABAC (the reference's
+libhenc) overlapping device work on the next chunk. Every AU equals, byte
+for byte, what `homerhevc_tpu.api.HomerEncoder(cfg, backend="jax")` writes.
+Configurations outside the slice raise NotImplementedError naming the
+setting; nothing is handed to the JAX package.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from homerhevc_tpu import tables as np_tables
+from homerhevc_tpu.api import SCENE_SAD_PER_PIXEL, _pad_to, _tree_decisions
+from homerhevc_tpu.config import (BitrateMode, EncoderConfig, PerformanceMode,
+                                  RDMode)
+from homerhevc_tpu.entropy import headers, native_backend
+from homerhevc_tpu.ops.inter_golden import derive_block_decisions_fast
+from homerhevc_tpu.pipeline import assemble
+
+from .ops.sao import sao_stage_device
+from .pipeline import intra_torch, p_chunk, p_torch
+
+
+def check_slice(c: EncoderConfig) -> None:
+    """Raise NotImplementedError for any setting outside the ported slice."""
+    checks = (
+        (c.performance_mode != PerformanceMode.FASTEST_COMPUTATION,
+         f"performance_mode={c.performance_mode.name}"),
+        (c.me_search_range > p_torch.HIER_THRESHOLD,
+         f"me_search_range={c.me_search_range} (> "
+         f"{p_torch.HIER_THRESHOLD}: hierarchical ME)"),
+        (c.cu_size != 32, f"cu_size={c.cu_size}"),
+        (c.gop_size >= 2, f"gop_size={c.gop_size} (B frames)"),
+        (c.bitrate_mode != BitrateMode.FIXED_QP,
+         f"bitrate_mode={c.bitrate_mode.name}"),
+        (c.wpp, "wpp=True"),
+        (c.wpp_shards > 1, f"wpp_shards={c.wpp_shards}"),
+        (c.rd_mode != RDMode.FULL, f"rd_mode={c.rd_mode.name}"),
+        (c.bit_depth != 8, f"bit_depth={c.bit_depth}"),
+    )
+    for bad, what in checks:
+        if bad:
+            raise NotImplementedError(f"homerhevc_tpu_torch: {what} is not "
+                                      "ported")
+
+
+class HomerEncoder:
+    """Streaming HEVC encoder session (IDR + P low-delay) on one device.
+
+    `kernels=False` runs the plain PyTorch versions of the hand-written
+    CUDA kernels on a CUDA device (for comparison runs only); on a CPU
+    device the plain versions always run."""
+
+    def __init__(self, cfg: EncoderConfig, *, device, kernels: bool = True,
+                 fetch_recon: bool = True):
+        self.cfg = cfg.validate()
+        check_slice(self.cfg)
+        c = self.cfg
+        self.device = torch.device(device)
+        self.kernels = kernels
+        self.fetch_recon = fetch_recon
+        self.ctu = c.ctu_size
+        self.ctu_log2 = self.ctu.bit_length() - 1
+        self.pw = c.padded_width
+        self.ph = c.padded_height
+        self.params = headers.StreamParams(
+            width=c.width, height=c.height,
+            pad_right=self.pw - c.width, pad_bottom=self.ph - c.height,
+            ctu_log2=self.ctu_log2, min_cu_log2=self.ctu_log2,
+            max_tu_log2=min(5, self.ctu_log2),
+            max_tr_depth_intra=0, max_tr_depth_inter=0,
+            init_qp=c.qp, sign_hiding=c.sign_hiding,
+            deblocking_disabled=not c.deblocking, num_ref_frames=1,
+            wpp_enabled=False, sao_enabled=c.sample_adaptive_offset,
+            cb_qp_offset=c.chroma_qp_offset,
+            cr_qp_offset=c.chroma_qp_offset)
+        self.poc = 0
+        self.last_idr = 0
+        self._ref = None           # decoded reference planes, on the device
+        self._cur_dev = None
+        self.last_recon = None
+        self.last_qp = c.qp
+        self.frame_bytes = []
+        self.chunk_overflows = 0
+        # side stream for the device-to-host wire copy of each chunk, so the
+        # copy of chunk k overlaps compute of chunk k+1 on the main stream
+        self._copy_stream = (torch.cuda.Stream(self.device)
+                             if self.device.type == "cuda" else None)
+
+    # ------------------------------------------------------------------
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    def _pad_frame(self, y, u, v):
+        return (_pad_to(np.asarray(y, np.uint8), self.ph, self.pw),
+                _pad_to(np.asarray(u, np.uint8), self.ph // 2, self.pw // 2),
+                _pad_to(np.asarray(v, np.uint8), self.ph // 2, self.pw // 2))
+
+    def seed_reference(self, ref_planes, *, poc: int,
+                       last_idr: int | None = None) -> None:
+        """Continue a P chain started elsewhere: install reconstructed
+        reference planes (padded Y/U/V uint8 numpy) on the session's device
+        and the next POC, exactly as the reference session does."""
+        ry, ru, rv = (np.asarray(p, np.uint8) for p in ref_planes)
+        if ry.shape != (self.ph, self.pw):
+            raise ValueError("seed ref must be padded to (ph, pw)")
+        if ru.shape != (self.ph // 2, self.pw // 2) or rv.shape != ru.shape:
+            raise ValueError("seed ref chroma planes must be padded to "
+                             "(ph/2, pw/2)")
+        self._ref = tuple(self._upload(p) for p in (ry, ru, rv))
+        self.poc = int(poc)
+        if last_idr is not None:
+            self.last_idr = int(last_idr)
+        elif self.cfg.intra_period > 0 and self.poc % self.cfg.intra_period:
+            raise ValueError("seed_reference needs last_idr when poc is not "
+                             "a multiple of intra_period")
+
+    # ------------------------------------------------------------------
+    def encode_frame(self, y, u, v, *, force_idr: bool = False) -> bytes:
+        c = self.cfg
+        if np.shape(y) != (c.height, c.width):
+            raise ValueError("frame size mismatch")
+        yp, up, vp = self._pad_frame(y, u, v)
+        is_idr = (self.poc == 0 or force_idr
+                  or (c.intra_period > 0
+                      and (self.poc - self.last_idr) % c.intra_period == 0))
+        qp = int(np.clip(c.qp, 0, 51))
+        self.last_qp = qp
+        self._scene_idr = False
+        au, recon_padded = self._encode(yp, up, vp, is_idr, qp)
+        if self._scene_idr:
+            is_idr = True
+        if is_idr:
+            self.last_idr = self.poc
+        self.poc += 1
+        self.frame_bytes.append(len(au))
+        if recon_padded is None:
+            self.last_recon = None
+        else:
+            self.last_recon = tuple(
+                p[:h, :w] for p, (h, w) in zip(
+                    recon_padded, ((c.height, c.width),
+                                   (c.height // 2, c.width // 2),
+                                   (c.height // 2, c.width // 2))))
+        return au
+
+    def _encode(self, yp, up, vp, is_idr, qp):
+        c = self.cfg
+        size = self.ctu
+        self._cur_dev = tuple(self._upload(p) for p in (yp, up, vp))
+        ydev, udev, vdev = self._cur_dev
+        if is_idr:
+            out = intra_torch.encode_frame_intra(
+                ydev, udev, vdev, B=size, qp=qp, sign_hiding=c.sign_hiding)
+            wire_h = out["wire"].cpu().numpy()          # one compact fetch
+            (cnt_i, mode_u8, depth_u8, _, _, idx_i,
+             vals_i) = intra_torch.unpack_intra_wire(wire_h, self.ph, self.pw)
+            cap_i = intra_torch.intra_wire_cap(self.ph, self.pw)
+            if cnt_i <= cap_i:
+                lev = self._scatter(idx_i, vals_i, cnt_i)[:3]
+            else:                                  # capacity overflow
+                self.chunk_overflows += 1
+                lev = tuple(out[k].cpu().numpy()
+                            for k in ("lev_y", "lev_u", "lev_v"))
+            maps = native_backend.maps_from_intra_units(mode_u8, depth_u8,
+                                                        *lev)
+            if c.deblocking:
+                self._ref = p_torch.deblock_intra_device(
+                    out["recon_y"], out["recon_u"], out["recon_v"], qp=qp,
+                    depth_units=out["depth_units"])
+            else:
+                self._ref = (out["recon_y"], out["recon_u"], out["recon_v"])
+            sao_info = self._maybe_sao(qp)
+            au = assemble.assemble_idr_au_from_maps(
+                self.params, maps, slice_qp=qp, include_parameter_sets=True,
+                sao_info=sao_info)
+        else:
+            out = p_torch.p_frame_device(
+                ydev, udev, vdev, *self._ref, B=size, qp=qp,
+                search=c.me_search_range,
+                me_precision=int(c.motion_estimation_precision),
+                deblock=c.deblocking, sign_hiding=c.sign_hiding,
+                kernels=self.kernels)
+            nby, nbx = self.ph // size, self.pw // size
+            B2 = size // 2
+            ny = nby * nbx * size * size
+            nc = nby * nbx * B2 * B2
+            wire = out["wire"].cpu().numpy()            # one fetch
+            meta = np.ascontiguousarray(wire[ny + 2 * nc:]).view(np.int32)
+            mvs = meta[:nby * nbx * 2].reshape(nby, nbx, 2)
+            sad = meta[nby * nbx * 2:].reshape(nby, nbx)
+            if c.reinit_gop_on_scene_change:
+                ms = float(sad.astype(np.int64).mean())
+                if ms / (size * size) > SCENE_SAD_PER_PIXEL:
+                    self._scene_idr = True
+                    return self._encode(yp, up, vp, True, qp)
+            lev_y = wire[:ny].reshape(nby, nbx, size, size)
+            lev_u = wire[ny:ny + nc].reshape(nby, nbx, B2, B2)
+            lev_v = wire[ny + nc:ny + 2 * nc].reshape(nby, nbx, B2, B2)
+            has_resid = (np.any(lev_y, axis=(-1, -2))
+                         | np.any(lev_u, axis=(-1, -2))
+                         | np.any(lev_v, axis=(-1, -2)))
+            dec, _ = derive_block_decisions_fast(mvs, has_resid, size, 5)
+            maps = native_backend.maps_from_p_arrays(mvs, dec, lev_y, lev_u,
+                                                     lev_v, size)
+            key = "ref" if c.deblocking else "recon"
+            self._ref = (out[key + "_y"], out[key + "_u"], out[key + "_v"])
+            sao_info = self._maybe_sao(qp, slice_p=True)
+            au = assemble.assemble_p_au_from_maps(
+                self.params, maps, poc=self.poc - self.last_idr,
+                slice_qp=qp, sao_info=sao_info)
+        recon = (tuple(p.cpu().numpy() for p in self._ref)
+                 if self.fetch_recon else None)
+        return au, recon
+
+    def _scatter(self, idx, vals, cnt):
+        """Dense level planes (+ per-unit nonzero map, or None) from the
+        compacted coded sub-blocks: libhenc when it loads, numpy else."""
+        res = native_backend.scatter_levels_native(idx, vals, cnt, self.ph,
+                                                   self.pw)
+        if res is not None:
+            return res
+        return p_chunk.scatter_levels(idx, vals, cnt, self.ph,
+                                      self.pw) + (None,)
+
+    def _maybe_sao(self, qp, slice_p=False):
+        """SAO on the loop-filtered reference: device stats, host numpy
+        derivation, device application; updates the reference planes."""
+        if not self.cfg.sample_adaptive_offset:
+            return None
+        qp_c = int(np_tables.chroma_qp_from_luma(qp))
+        info, self._ref = sao_stage_device(self._cur_dev, self._ref,
+                                           self.ctu, qp, qp_c,
+                                           slice_p=slice_p)
+        return info
+
+    # ------------------------------------------------------------------
+    def encode_frames(self, frames, *, chunk: int = 8) -> list:
+        """Batched streaming encode: [(y, u, v), ...] -> [Annex-B AU, ...].
+
+        Runs of P frames go through the chunked device pipeline, one
+        dispatch and one wire copy per `chunk` frames; up to
+        `frame_pipeline_depth` chunks are in flight, so the host CABAC of
+        chunk k overlaps device work on chunk k+1. IDR frames (POC 0,
+        intra_period boundaries, scene cuts) use the per-frame path."""
+        c = self.cfg
+        n = len(frames)
+        poc0 = self.poc
+        aus: list = [None] * n
+        i = 0
+
+        def is_idr_at(k):
+            poc = poc0 + k
+            return (poc == 0
+                    or (c.intra_period > 0
+                        and (poc - self.last_idr) % c.intra_period == 0))
+
+        depth = max(1, int(c.frame_pipeline_depth))
+        pend_q = []
+        while i < n or pend_q:
+            while i < n and not is_idr_at(i) and len(pend_q) < depth:
+                if c.intra_period > 0:
+                    poc = poc0 + i
+                    run_end = min(n, i + c.intra_period
+                                  - (poc - self.last_idr) % c.intra_period)
+                else:
+                    run_end = n
+                j = min(run_end, i + chunk)
+                idxs = list(range(i, j))
+                qps = [int(np.clip(c.qp, 0, 51)) for _ in idxs]
+                pend_q.append(self._dispatch_chunk(
+                    [frames[k] for k in idxs], idxs, qps))
+                i = j
+            if pend_q:
+                if self._finish_chunk(pend_q.pop(0), aus, frames) == "scene":
+                    # the re-encode changed the reference chain: every
+                    # dispatched-but-unprocessed chunk is invalid
+                    pend_q.clear()
+                    i = next((k for k in range(n) if aus[k] is None), n)
+            if not pend_q and i < n and is_idr_at(i):
+                aus[i] = self.encode_frame(*frames[i])
+                i += 1
+        return aus
+
+    @property
+    def _chunk_cap(self):
+        # compacted coded-sub-block capacity: 1/64 of all 4x4 sub-blocks
+        L4 = (self.ph // 4) * (self.pw // 4) * 3 // 2
+        return max(1024, L4 // 64)
+
+    @property
+    def _chunk_cap2(self):
+        return max(64, self._chunk_cap // 8)
+
+    def _dispatch_chunk(self, fr, idxs, qps):
+        c = self.cfg
+        padded = [self._pad_frame(*f) for f in fr]
+        ys, us, vs = (self._upload(np.stack([p[k] for p in padded]))
+                      for k in range(3))
+        qps_d = self._upload(np.asarray(qps, np.int32))
+        wires, denses, fy, fu, fv = p_chunk.p_chunk_device(
+            ys, us, vs, *self._ref, qps_d, ctu=self.ctu,
+            search=c.me_search_range,
+            me_precision=int(c.motion_estimation_precision),
+            sign_hiding=c.sign_hiding, deblock=c.deblocking,
+            sao=c.sample_adaptive_offset, cap=self._chunk_cap,
+            kernels=self.kernels)
+        self._ref = (fy, fu, fv)
+        host, done = wires, None
+        if self._copy_stream is not None:
+            # start the device-to-host copy now, on the side stream, ordered
+            # after this chunk's work only
+            self._copy_stream.wait_stream(torch.cuda.current_stream(
+                self.device))
+            with torch.cuda.stream(self._copy_stream):
+                host = torch.empty(wires.shape, dtype=wires.dtype,
+                                   pin_memory=True)
+                host.copy_(wires, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(self._copy_stream)
+            wires.record_stream(self._copy_stream)
+        return idxs, qps, host, done, denses
+
+    def _finish_chunk(self, pending, aus, frames):
+        """Host side of one dispatched chunk: unpack, decisions, CABAC.
+        Returns None, or 'scene' after a scene-cut re-encode."""
+        c = self.cfg
+        ctu = self.ctu
+        idxs, qps, host, done, denses = pending
+        if done is not None:
+            done.synchronize()
+        wires_h = host.numpy()
+        cap = self._chunk_cap
+        uh, uw = self.ph // 4, self.pw // 4
+        for row_i, (fi, qp) in enumerate(zip(idxs, qps)):
+            w = p_chunk.unpack_wire(wires_h[row_i], self.ph, self.pw, ctu,
+                                    cap)
+            if c.reinit_gop_on_scene_change:
+                ms = float(w["sad"].astype(np.int64).mean())
+                if ms / (ctu * ctu) > SCENE_SAD_PER_PIXEL:
+                    # scene cut: this frame and the rest of the chunk are
+                    # re-encoded per frame, IDR first
+                    for k in idxs[row_i:]:
+                        aus[k] = self.encode_frame(*frames[k],
+                                                   force_idr=(k == fi))
+                    return "scene"
+            cnt = int(w["cnt"][0])
+            if cnt <= cap and int(w["cnt2"][0]) <= self._chunk_cap2:
+                lev_y, lev_u, lev_v, nz = self._scatter(w["idx"], w["vals"],
+                                                        min(cnt, cap))
+            else:                                   # capacity overflow
+                self.chunk_overflows += 1
+                d = denses[row_i].cpu().numpy()
+                npix = self.ph * self.pw
+                lev_y = d[:npix].reshape(self.ph, self.pw).astype(np.int32)
+                lev_u = (d[npix:npix + npix // 4]
+                         .reshape(self.ph // 2, self.pw // 2).astype(np.int32))
+                lev_v = (d[npix + npix // 4:npix + npix // 2]
+                         .reshape(self.ph // 2, self.pw // 2).astype(np.int32))
+                nz = None
+            g = w["gran"]
+            depth_u = np.repeat(np.repeat(w["depth16"], g, 0), g, 1)
+            trd_u = np.repeat(np.repeat(w["trd16"], g, 0), g, 1)
+            intra_u = np.repeat(np.repeat(w["intra16"], g, 0), g, 1)
+            mv_u = np.repeat(np.repeat(w["mv16"], g, 0), g, 1)
+            if nz is None:
+                nz = (np.any(lev_y.reshape(uh, 4, uw, 4) != 0, axis=(1, 3))
+                      | np.any(lev_u.reshape(uh, 2, uw, 2) != 0, axis=(1, 3))
+                      | np.any(lev_v.reshape(uh, 2, uw, 2) != 0, axis=(1, 3)))
+            imode_u = np.where(intra_u.astype(bool), mv_u[..., 0], 1)
+            dec = _tree_decisions(depth_u, mv_u, nz, self.ctu_log2, 5,
+                                  pred_intra_u=intra_u)
+            trd_p = np.where(intra_u.astype(bool), 0, trd_u)
+            maps = native_backend.maps_from_p_units(
+                depth_u, dec, lev_y, lev_u, lev_v, tr_depth=trd_p,
+                pred_intra=intra_u, intra_mode=imode_u)
+            sao_info = None
+            if c.sample_adaptive_offset:
+                pp = w["sao_pp"]
+                luma, ml, mu = p_chunk.unpk_params(pp[0])
+                cb, _, _ = p_chunk.unpk_params(pp[1])
+                cr, _, _ = p_chunk.unpk_params(pp[2])
+                sao_info = dict(luma=luma, cb=cb, cr=cr, merge_left=ml,
+                                merge_up=mu, sao_luma=True, sao_chroma=True)
+            au = assemble.assemble_p_au_from_maps(
+                self.params, maps, poc=self.poc - self.last_idr,
+                slice_qp=qp, sao_info=sao_info)
+            aus[fi] = au
+            self.last_qp = qp
+            self.poc += 1
+            self.frame_bytes.append(len(au))
+        return None
+
+    # ------------------------------------------------------------------
+    def close(self) -> None:
+        self._ref = None
+        self._cur_dev = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

@@ -1,0 +1,87 @@
+"""Build and bind the hand-written CUDA kernels.
+
+Route: `nvcc -shared -Xcompiler -fPIC` compiles each `kernels/<name>.cu`
+into its own shared library with a plain C interface, loaded with ctypes.
+Each launcher takes raw device pointers and the CUDA stream as integers
+and returns the cudaError_t of the launch (0 = success). The sources
+include no PyTorch header, so a build takes seconds.
+
+Libraries are built at first use into `kernels/_build/` (listed in
+.gitignore), named by a hash of source + flags so an edited source is
+rebuilt. A failed build or launch raises; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+from pathlib import Path
+
+_DIR = Path(__file__).resolve().parent
+BUILD_DIR = _DIR / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+
+def nvcc_path() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME is None:
+        raise RuntimeError("CUDA toolkit not found (no CUDA_HOME, no nvcc)")
+    nvcc = os.path.join(CUDA_HOME, "bin", "nvcc")
+    if not os.path.exists(nvcc):
+        raise RuntimeError(f"nvcc not found at {nvcc}")
+    return nvcc
+
+
+def build_library(name: str) -> Path:
+    """Compile kernels/<name>.cu (if not already built) -> library path."""
+    src = _DIR / f"{name}.cu"
+    key = hashlib.sha256(src.read_bytes()
+                         + repr(NVCC_FLAGS).encode()).hexdigest()
+    lib = BUILD_DIR / f"lib{name}-{key[:16]}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {src.name}:\n{res.stderr}")
+    os.replace(tmp, lib)
+    return lib
+
+
+class CudaKernel:
+    """One kernel library: lazy build + bind, launch with error check, and
+    a count of launches (`launches`, incremented once per kernel launch and
+    nowhere else) so a run can show the main path went through it."""
+
+    def __init__(self, name: str, argtypes):
+        self.name = name
+        self.source = f"homerhevc_tpu_torch/kernels/{name}.cu"
+        self.argtypes = list(argtypes)
+        self.launches = 0
+        self._fn = None
+        self._err = None
+
+    def load(self):
+        """Build (first use) and bind the launcher; returns it."""
+        if self._fn is None:
+            lib = ctypes.CDLL(str(build_library(self.name)))
+            fn = getattr(lib, f"{self.name}_launch")
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            err = getattr(lib, f"{self.name}_error_string")
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            self._fn, self._err = fn, err
+        return self._fn
+
+    def launch(self, *args) -> None:
+        rc = self.load()(*args)
+        if rc != 0:
+            raise RuntimeError(f"{self.name} launch failed: cudaError {rc} "
+                               f"({self._err(rc).decode()})")
+        self.launches += 1

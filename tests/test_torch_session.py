@@ -1,0 +1,138 @@
+"""Session level: the torch port's HomerEncoder (device=cpu, plain kernel
+versions) against homerhevc_tpu.api.HomerEncoder(backend="jax").
+
+  * the 128x96 fixture clip (synth_clip(128, 96, 6, seed=3), slice
+    configuration, encode_frames(chunk=3)) gives byte-identical AUs;
+  * the committed fixture tests/fixtures/torch_port_aus.json still equals
+    the live JAX output (chip_smoke.py holds the card to that fixture);
+  * the port's stream decodes in libde265 to the port's own recon;
+  * seed_reference carries a P chain over: both sessions seeded from the
+    same planes give byte-identical P AUs;
+  * settings outside the slice raise NotImplementedError.
+
+Tolerance: exact, byte for byte.
+"""
+
+import dataclasses
+import json
+import os
+
+import numpy as np
+import pytest
+
+from homerhevc_tpu.api import HomerEncoder as JaxEncoder
+from homerhevc_tpu.config import (BitrateMode, PerformanceMode, RDMode)
+from homerhevc_tpu_torch.api import HomerEncoder
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_aus.json")
+
+
+def _tools():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "make_torch_fixtures",
+        os.path.join(ROOT, "tools", "make_torch_fixtures.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def small():
+    fx = _tools()
+    r = fx.RUNS["small"]
+    cfg = fx.slice_config(r["width"], r["height"])
+    return fx, r, fx.clip("small"), cfg
+
+
+@pytest.fixture(scope="module")
+def jax_aus(small):
+    fx, _, _, _ = small
+    return fx.jax_run("small")
+
+
+@pytest.fixture(scope="module")
+def port_aus(small):
+    _, r, frames, cfg = small
+    enc = HomerEncoder(cfg, device="cpu", fetch_recon=False)
+    aus = enc.encode_frames(frames, chunk=r["chunk"])
+    enc.close()
+    return aus
+
+
+def test_session_matches_jax(jax_aus, port_aus):
+    assert len(jax_aus) == len(port_aus)
+    for k, (a, b) in enumerate(zip(jax_aus, port_aus)):
+        assert a == b, f"AU {k} differs: {len(a)} vs {len(b)} bytes"
+
+
+def test_fixture_matches_live_jax(small, jax_aus):
+    fx = small[0]
+    with open(FIXTURE) as f:
+        want = json.load(f)["small"]["aus"]
+    assert fx.au_digest(jax_aus) == want
+
+
+def test_port_matches_fixture(small, port_aus):
+    with open(FIXTURE) as f:
+        want = json.load(f)["small"]["aus"]
+    assert small[0].au_digest(port_aus) == want
+
+
+def test_per_frame_path_matches_chunked(small, port_aus):
+    _, _, frames, cfg = small
+    enc = HomerEncoder(cfg, device="cpu")
+    got = [enc.encode_frame(*f) for f in frames]
+    assert got == port_aus
+    assert enc.last_recon[0].shape == (cfg.height, cfg.width)
+
+
+def test_port_stream_decodes(small):
+    from homerhevc_tpu.validate import de265
+    if not de265.available():
+        pytest.skip("libde265 not available")
+    _, _, frames, cfg = small
+    enc = HomerEncoder(cfg, device="cpu")
+    aus, recons = [], []
+    for f in frames:
+        aus.append(enc.encode_frame(*f))
+        recons.append(enc.last_recon)
+    dec = de265.decode_annexb(b"".join(aus))
+    assert len(dec) == len(frames)
+    for k, (d, r) in enumerate(zip(dec, recons)):
+        for p, q in zip(d, r):
+            np.testing.assert_array_equal(p, q, err_msg=f"frame {k}")
+
+
+def test_seed_reference_carry_over(small):
+    _, _, frames, cfg = small
+    cfg = dataclasses.replace(cfg, reinit_gop_on_scene_change=False)
+    first = HomerEncoder(cfg, device="cpu")
+    first.encode_frames(frames[:2], chunk=1)
+    ref = tuple(p.numpy() for p in first._ref)
+    tail = frames[2:4]
+    jax_enc = JaxEncoder(cfg, backend="jax", fetch_recon=False)
+    jax_enc.seed_reference(ref, poc=2, last_idr=0)
+    port = HomerEncoder(cfg, device="cpu", fetch_recon=False)
+    port.seed_reference(ref, poc=2, last_idr=0)
+    want = jax_enc.encode_frames(tail, chunk=3)
+    got = port.encode_frames(tail, chunk=3)
+    assert got == want
+    assert port.poc == jax_enc.poc == 4
+
+
+@pytest.mark.parametrize("field,value", [
+    ("performance_mode", PerformanceMode.FAST_COMPUTATION),
+    ("me_search_range", 32),
+    ("cu_size", 64),
+    ("gop_size", 2),
+    ("bitrate_mode", BitrateMode.CBR),
+    ("wpp", True),
+    ("wpp_shards", 2),
+    ("rd_mode", RDMode.FAST),
+])
+def test_out_of_slice_settings_raise(small, field, value):
+    cfg = dataclasses.replace(small[3], **{field: value})
+    with pytest.raises(NotImplementedError, match=field):
+        HomerEncoder(cfg, device="cpu")
