@@ -3,23 +3,34 @@
 The JAX package `homerhevc_tpu` is the reference: every Access Unit this
 package writes must equal, byte for byte, what `homerhevc_tpu.api.
 HomerEncoder(cfg, backend="jax")` writes for the same frames. This package
-imports torch and never jax; it reuses the reference's jax-free host modules
-(config, numpy tables, entropy coding with libhenc, AU assembly, synthetic
-clips, libde265 validation) without copying them.
+imports torch and never jax, and nothing of the JAX package either: it
+keeps its own copies of the host modules it needs (config, numpy tables,
+entropy coding with its own build of libhenc, AU assembly, the host SAO and
+merge/AMVP derivations, synthetic clips, libde265 validation), under the
+same names and layout. Only the tests import both packages.
 
 Supported slice: the fixed-CU P path (`performance_mode=FASTEST_COMPUTATION`,
 `cu_size=32`, `me_search_range <= 24`, fixed QP, rd_mode FULL). Everything
 else raises NotImplementedError naming the setting.
 
 Layer map:
-  api.py                  — HomerEncoder session (IDR + chunked P frames)
+  api.py                  — HomerEncoder session (IDR + chunked P frames);
+                            runs on the CUDA device unless told device="cpu"
+  config.py               — EncoderConfig and its enums
   device.py               — device checks and int32 helpers
   tables.py               — numpy spec tables + torch twins
-  ops/                    — transforms, quant, intra prediction, deblock, SAO,
-                            and the two kernel-backed ops (me.py, gather.py)
+  entropy/                — bitstream, headers, CABAC (Python oracle) and
+                            libhenc (C++, built with g++ at first use)
+  ops/                    — transforms, quant, intra prediction, deblock, SAO
+                            (device and host derivation), inter candidate
+                            decisions, and the two kernel-backed ops (me.py,
+                            gather.py)
   pipeline/               — intra_torch (IDR wavefront), p_torch (P stage),
-                            p_chunk (K-frame device loop + wire)
+                            p_chunk (K-frame device loop + wire), assemble
+                            (headers + slice data -> Annex-B)
   kernels/                — hand-written CUDA kernels for sm_90a + build
+  utils/, validate/       — synthetic clips, the reference runs' fixtures
+                            helpers, libde265 decode check
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"

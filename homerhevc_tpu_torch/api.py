@@ -1,17 +1,20 @@
 """Public encoder session of the PyTorch/CUDA port.
 
-    enc = HomerEncoder(cfg, device=torch.device("cuda"))
+    enc = HomerEncoder(cfg)                    # on the card; raises without one
     aus = enc.encode_frames(frames, chunk=8)   # Annex-B bytes, one per AU
     enc.close()
 
 Port of homerhevc_tpu/api.py for the slice this package supports: IDR
 frames through the all-intra wavefront (CU = TU = 32, no split RDO), P
 frames through the fixed-CU device stage, chunked K frames per dispatch with
-the reference planes kept on the device, and host CABAC (the reference's
-libhenc) overlapping device work on the next chunk. Every AU equals, byte
+the reference planes kept on the device, and host CABAC (this package's
+own libhenc, built with g++ at first use) overlapping device work on the
+next chunk. Every AU equals, byte
 for byte, what `homerhevc_tpu.api.HomerEncoder(cfg, backend="jax")` writes.
 Configurations outside the slice raise NotImplementedError naming the
-setting; nothing is handed to the JAX package.
+setting. Nothing of the JAX package is imported: config, tables, entropy
+coding and AU assembly are this package's own copies, and a configuration
+object of another package raises TypeError.
 """
 
 from __future__ import annotations
@@ -19,16 +22,31 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from homerhevc_tpu import tables as np_tables
-from homerhevc_tpu.api import SCENE_SAD_PER_PIXEL, _pad_to, _tree_decisions
-from homerhevc_tpu.config import (BitrateMode, EncoderConfig, PerformanceMode,
-                                  RDMode)
-from homerhevc_tpu.entropy import headers, native_backend
-from homerhevc_tpu.ops.inter_golden import derive_block_decisions_fast
-from homerhevc_tpu.pipeline import assemble
-
+from . import tables
+from .config import BitrateMode, EncoderConfig, PerformanceMode, RDMode
+from .device import require_cuda
+from .entropy import headers, native_backend
+from .ops.inter_golden import derive_block_decisions_fast
 from .ops.sao import sao_stage_device
-from .pipeline import intra_torch, p_chunk, p_torch
+from .pipeline import assemble, intra_torch, p_chunk, p_torch
+
+SCENE_SAD_PER_PIXEL = 25.0     # mean best-ME-cost per pixel => scene cut
+
+
+def _pad_to(a: np.ndarray, h: int, w: int) -> np.ndarray:
+    ph, pw = h - a.shape[0], w - a.shape[1]
+    if ph == 0 and pw == 0:
+        return a
+    return np.pad(a, ((0, ph), (0, pw)), mode="edge")
+
+
+def _tree_decisions(depth_u, mv_u, nz_u, ctu_log2: int, n_cand: int = 5,
+                    pred_intra_u=None):
+    """Merge/skip/AMVP decision walk in libhenc (bit-identical to the
+    Python walk ops.inter_golden.derive_tree_decisions;
+    tests/test_torch_host.py)."""
+    return native_backend.derive_tree_decisions_native(
+        depth_u, mv_u, nz_u, ctu_log2, n_cand, pred_intra_u=pred_intra_u)
 
 
 def check_slice(c: EncoderConfig) -> None:
@@ -57,16 +75,26 @@ def check_slice(c: EncoderConfig) -> None:
 class HomerEncoder:
     """Streaming HEVC encoder session (IDR + P low-delay) on one device.
 
+    `device=None` (the default) is the CUDA device, and raises RuntimeError
+    when there is none; a caller that wants the CPU says `device="cpu"`.
+    `cfg` must be this package's `EncoderConfig` (TypeError otherwise: the
+    enums of another package compare unequal to these).
     `kernels=False` runs the plain PyTorch versions of the hand-written
     CUDA kernels on a CUDA device (for comparison runs only); on a CPU
     device the plain versions always run."""
 
-    def __init__(self, cfg: EncoderConfig, *, device, kernels: bool = True,
-                 fetch_recon: bool = True):
+    def __init__(self, cfg: EncoderConfig, *, device=None,
+                 kernels: bool = True, fetch_recon: bool = True):
+        if not isinstance(cfg, EncoderConfig):
+            raise TypeError(
+                "HomerEncoder needs a homerhevc_tpu_torch.config."
+                f"EncoderConfig, not {type(cfg).__module__}."
+                f"{type(cfg).__qualname__}")
         self.cfg = cfg.validate()
         check_slice(self.cfg)
         c = self.cfg
-        self.device = torch.device(device)
+        self.device = (require_cuda() if device is None
+                       else torch.device(device))
         self.kernels = kernels
         self.fetch_recon = fetch_recon
         self.ctu = c.ctu_size
@@ -170,7 +198,8 @@ class HomerEncoder:
              vals_i) = intra_torch.unpack_intra_wire(wire_h, self.ph, self.pw)
             cap_i = intra_torch.intra_wire_cap(self.ph, self.pw)
             if cnt_i <= cap_i:
-                lev = self._scatter(idx_i, vals_i, cnt_i)[:3]
+                lev = native_backend.scatter_levels_native(
+                    idx_i, vals_i, cnt_i, self.ph, self.pw)[:3]
             else:                                  # capacity overflow
                 self.chunk_overflows += 1
                 lev = tuple(out[k].cpu().numpy()
@@ -226,22 +255,12 @@ class HomerEncoder:
                  if self.fetch_recon else None)
         return au, recon
 
-    def _scatter(self, idx, vals, cnt):
-        """Dense level planes (+ per-unit nonzero map, or None) from the
-        compacted coded sub-blocks: libhenc when it loads, numpy else."""
-        res = native_backend.scatter_levels_native(idx, vals, cnt, self.ph,
-                                                   self.pw)
-        if res is not None:
-            return res
-        return p_chunk.scatter_levels(idx, vals, cnt, self.ph,
-                                      self.pw) + (None,)
-
     def _maybe_sao(self, qp, slice_p=False):
         """SAO on the loop-filtered reference: device stats, host numpy
         derivation, device application; updates the reference planes."""
         if not self.cfg.sample_adaptive_offset:
             return None
-        qp_c = int(np_tables.chroma_qp_from_luma(qp))
+        qp_c = int(tables.chroma_qp_from_luma(qp))
         info, self._ref = sao_stage_device(self._cur_dev, self._ref,
                                            self.ctu, qp, qp_c,
                                            slice_p=slice_p)
@@ -359,8 +378,8 @@ class HomerEncoder:
                     return "scene"
             cnt = int(w["cnt"][0])
             if cnt <= cap and int(w["cnt2"][0]) <= self._chunk_cap2:
-                lev_y, lev_u, lev_v, nz = self._scatter(w["idx"], w["vals"],
-                                                        min(cnt, cap))
+                lev_y, lev_u, lev_v, nz = native_backend.scatter_levels_native(
+                    w["idx"], w["vals"], min(cnt, cap), self.ph, self.pw)
             else:                                   # capacity overflow
                 self.chunk_overflows += 1
                 d = denses[row_i].cpu().numpy()

@@ -8,7 +8,9 @@ include no PyTorch header, so a build takes seconds.
 
 Libraries are built at first use into `kernels/_build/` (listed in
 .gitignore), named by a hash of source + flags so an edited source is
-rebuilt. A failed build or launch raises; nothing falls back.
+rebuilt; what `-Xptxas -v` prints (registers, shared memory and spills of
+every kernel) is kept beside each library as `<library>.ptxas.txt`. A failed
+build or launch raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -17,12 +19,13 @@ import ctypes
 import hashlib
 import os
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _DIR = Path(__file__).resolve().parent
 BUILD_DIR = _DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def nvcc_path() -> str:
@@ -49,8 +52,20 @@ def build_library(name: str) -> Path:
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed for {src.name}:\n{res.stderr}")
+    ptxas_log(lib).write_text(res.stderr)
     os.replace(tmp, lib)
     return lib
+
+
+def ptxas_log(lib: Path) -> Path:
+    """Where build_library keeps the `-Xptxas -v` output of a library."""
+    return lib.with_name(lib.name + ".ptxas.txt")
+
+
+def build_all(names) -> list:
+    """Build several kernel libraries at once, one nvcc process each."""
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return list(pool.map(build_library, names))
 
 
 class CudaKernel:
@@ -58,12 +73,14 @@ class CudaKernel:
     a count of launches (`launches`, incremented once per kernel launch and
     nowhere else) so a run can show the main path went through it."""
 
-    def __init__(self, name: str, argtypes):
+    def __init__(self, name: str, argtypes, floor_argtypes):
         self.name = name
         self.source = f"homerhevc_tpu_torch/kernels/{name}.cu"
         self.argtypes = list(argtypes)
+        self.floor_argtypes = list(floor_argtypes)
         self.launches = 0
         self._fn = None
+        self._floor = None
         self._err = None
 
     def load(self):
@@ -73,15 +90,26 @@ class CudaKernel:
             fn = getattr(lib, f"{self.name}_launch")
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
+            floor = getattr(lib, f"{self.name}_floor_launch")
+            floor.argtypes = self.floor_argtypes
+            floor.restype = ctypes.c_int
             err = getattr(lib, f"{self.name}_error_string")
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
-            self._fn, self._err = fn, err
+            self._fn, self._floor, self._err = fn, floor, err
         return self._fn
 
-    def launch(self, *args) -> None:
-        rc = self.load()(*args)
+    def _check(self, rc: int) -> None:
         if rc != 0:
             raise RuntimeError(f"{self.name} launch failed: cudaError {rc} "
                                f"({self._err(rc).decode()})")
+
+    def launch(self, *args) -> None:
+        self._check(self.load()(*args))
         self.launches += 1
+
+    def launch_floor(self, *args) -> None:
+        """Launch the library's empty kernel of the same grid and CTA size
+        (a yardstick for timing; not counted as a launch of the kernel)."""
+        self.load()
+        self._check(self._floor(*args))

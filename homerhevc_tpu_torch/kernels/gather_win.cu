@@ -2,51 +2,132 @@
 //
 // Replaces the TPU kernel homerhevc_tpu/ops/gather_pallas.py (_gw_kernel via
 // gather_windows_grid): for each block b, the (G, G) window of a padded
-// int16 plane at absolute top-left (by[b], bx[b]), written as (nb, G, G).
-// Starts follow lax.dynamic_slice: a negative start counts from the end, and
-// the start is then clamped to [0, Hp - G] x [0, Wp - G], so the kernel
-// agrees with the plain version (and the JAX CPU path) at any start.
+// int16 plane at absolute top-left (by[b], bx[b]), written as (nb, G, G);
+// for P planes of one shape with the same starts (the two chroma planes),
+// (P, nb, G, G) from one launch. Starts follow lax.dynamic_slice: a negative
+// start counts from the end, and the start is then clamped to [0, Hp - G] x
+// [0, Wp - G], so the kernel agrees with the plain version (and the JAX CPU
+// path) at any start.
 //
-// Design (sm_90a, a first correct kernel): one CTA per block, threads copy
-// the window row by row (neighbouring threads on neighbouring columns, so
-// reads and writes coalesce). Pure data movement: bound by device-memory
-// traffic, 2 * nb * G * G * 2 bytes per call (the windows of neighbouring
-// blocks overlap, and the overlap is served from L2).
+// What bounds it on an H100: bytes, in principle (each window read and
+// written once, 2 * P * nb * G * G * 2 bytes: 6.2 MB, under 2 us of HBM time
+// for the luma call), but a copy this small is over before the memory
+// system is busy. What it really waits for is one chain of dependent
+// latencies: launch, the block's start (by, bx), the window's samples, the
+// stores. So the design shortens the chain rather than the byte count:
+//  * G is a template parameter for the sizes the P stage uses (41 and 19),
+//    so t / G is a multiply and a shift, the loops unroll and every load of
+//    a thread is in flight before its first store; any other G takes the
+//    generic kernel;
+//  * one CTA per window and plane, all of them resident at once;
+//  * a thread per sample, G*G/256 samples per thread, 2-byte loads and
+//    stores, neighbouring threads on neighbouring samples.
+// Two designs with wider stores were measured against this one and did not
+// beat it (a warp per window row with 4-byte stores: slower; the window
+// staged in shared memory and written as 16-byte vectors: equal at G 41,
+// slower for the chroma pair). tools/gather_variants.cu holds them and
+// tools/kernel_report.py times all three in one loop.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kMaxPlanes = 4;
 
-__global__ void __launch_bounds__(kThreads)
-gather_win_kernel(const int16_t* __restrict__ plane,
-                  const int32_t* __restrict__ by,
-                  const int32_t* __restrict__ bx, int16_t* __restrict__ out,
-                  int Hp, int Wp, int G) {
+struct Args {
+    const int16_t* plane[kMaxPlanes];  // P planes, each (Hp, Wp)
+    const int32_t* by;                 // (nb,)
+    const int32_t* bx;
+    int16_t* out;                      // (P, nb, G, G)
+    int nb, Hp, Wp, G;
+};
+
+// The CTA's source (top-left sample of its window) and destination.
+__device__ __forceinline__ void locate(const Args& a, int G,
+                                       const int16_t*& src, int16_t*& dst) {
     const int b = blockIdx.x;
     // lax.dynamic_slice semantics: a negative start counts from the end,
     // then the start is clamped so the window lies inside the plane
-    const int yb = by[b] < 0 ? by[b] + Hp : by[b];
-    const int xb = bx[b] < 0 ? bx[b] + Wp : bx[b];
-    const int y0 = min(max(yb, 0), Hp - G);
-    const int x0 = min(max(xb, 0), Wp - G);
-    int16_t* o = out + (size_t)b * G * G;
-    for (int t = threadIdx.x; t < G * G; t += blockDim.x) {
+    const int ys = a.by[b], xs = a.bx[b];
+    const int yb = ys < 0 ? ys + a.Hp : ys;
+    const int xb = xs < 0 ? xs + a.Wp : xs;
+    const int y0 = min(max(yb, 0), a.Hp - G);
+    const int x0 = min(max(xb, 0), a.Wp - G);
+    // picked by comparisons: indexing the parameter array with blockIdx.y
+    // would move the whole argument block to local memory
+    const int16_t* plane = a.plane[0];
+    if (blockIdx.y == 1) plane = a.plane[1];
+    if (blockIdx.y == 2) plane = a.plane[2];
+    if (blockIdx.y == 3) plane = a.plane[3];
+    src = plane + (size_t)y0 * a.Wp + x0;
+    dst = a.out + ((size_t)blockIdx.y * a.nb + b) * (G * G);
+}
+
+template <int G>
+__global__ void __launch_bounds__(kThreads) gather_kernel(Args a) {
+    constexpr int kIter = (G * G + kThreads - 1) / kThreads;
+    const int16_t* src;
+    int16_t* dst;
+    locate(a, G, src, dst);
+    int16_t v[kIter];
+#pragma unroll
+    for (int i = 0; i < kIter; ++i) {
+        const int t = threadIdx.x + i * kThreads;
         const int yy = t / G, xx = t - yy * G;
-        o[t] = plane[(size_t)(y0 + yy) * Wp + x0 + xx];
+        v[i] = t < G * G ? src[(size_t)yy * a.Wp + xx] : (int16_t)0;
+    }
+#pragma unroll
+    for (int i = 0; i < kIter; ++i) {
+        const int t = threadIdx.x + i * kThreads;
+        if (t < G * G) dst[t] = v[i];
     }
 }
 
+// Any G: a thread per sample, G * G / 256 rounds.
+__global__ void __launch_bounds__(kThreads) gather_generic_kernel(Args a) {
+    const int G = a.G;
+    const int16_t* src;
+    int16_t* dst;
+    locate(a, G, src, dst);
+    for (int t = threadIdx.x; t < G * G; t += blockDim.x) {
+        const int yy = t / G, xx = t - yy * G;
+        dst[t] = src[(size_t)yy * a.Wp + xx];
+    }
+}
+
+// Same grid and CTA size, no work: what a launch of this shape costs.
+__global__ void gather_floor_kernel() {}
+
 }  // namespace
 
-extern "C" int gather_win_launch(const void* plane, const void* by,
-                                 const void* bx, void* out, int nb, int Hp,
-                                 int Wp, int G, void* stream) {
+extern "C" int gather_win_launch(const void* p0, const void* p1,
+                                 const void* p2, const void* p3, int nplanes,
+                                 const void* by, const void* bx, void* out,
+                                 int nb, int Hp, int Wp, int G, void* stream) {
+    if (nplanes < 1 || nplanes > kMaxPlanes || G < 1 || G > Hp || G > Wp)
+        return (int)cudaErrorInvalidValue;
     if (nb == 0) return 0;
-    gather_win_kernel<<<nb, kThreads, 0, (cudaStream_t)stream>>>(
-        (const int16_t*)plane, (const int32_t*)by, (const int32_t*)bx,
-        (int16_t*)out, Hp, Wp, G);
+    Args a{{(const int16_t*)p0, (const int16_t*)p1, (const int16_t*)p2,
+            (const int16_t*)p3},
+           (const int32_t*)by, (const int32_t*)bx, (int16_t*)out,
+           nb, Hp, Wp, G};
+    const dim3 grid(nb, nplanes);
+    cudaStream_t st = (cudaStream_t)stream;
+    if (G == 41)
+        gather_kernel<41><<<grid, kThreads, 0, st>>>(a);
+    else if (G == 19)
+        gather_kernel<19><<<grid, kThreads, 0, st>>>(a);
+    else
+        gather_generic_kernel<<<grid, kThreads, 0, st>>>(a);
+    return (int)cudaGetLastError();
+}
+
+// An empty kernel with gather_win_launch's grid and CTA size.
+extern "C" int gather_win_floor_launch(int nb, int nplanes, void* stream) {
+    if (nb == 0) return 0;
+    gather_floor_kernel<<<dim3(nb, nplanes), kThreads, 0,
+                          (cudaStream_t)stream>>>();
     return (int)cudaGetLastError();
 }
 

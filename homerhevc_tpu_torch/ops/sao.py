@@ -4,8 +4,8 @@ Port of the device side of homerhevc_tpu/ops/sao.py: edge-index maps,
 decoder-exact application, per-CTU statistics (exact integer reshape-sums
 instead of the reference's one-hot f32 block sums), and a torch
 `derive_all_from_stats` for the in-chunk path (int32, as the reference's
-in-jit derivation). The IDR path derives on the host with the reference's
-own numpy derivation (`sao_stage_device`), as the JAX package does.
+in-jit derivation). The IDR path derives on the host with the numpy
+derivation of ops/sao_host.py (`sao_stage_device`), as the JAX package does.
 """
 
 from __future__ import annotations
@@ -15,11 +15,10 @@ import functools
 import numpy as np
 import torch
 
-from homerhevc_tpu.ops.sao import EO_NEIGHBORS, MAX_OFFSET
-from homerhevc_tpu.ops.sao import derive_all_from_stats as derive_all_np
-
 from .. import tables
 from ..device import const, first_argmin
+from .sao_host import EO_NEIGHBORS, MAX_OFFSET
+from .sao_host import derive_all_from_stats as derive_all_np
 
 I32 = torch.int32
 
@@ -291,7 +290,7 @@ def sao_stage_device(orig_planes, dbk_planes, ctu: int, qp: int, qp_c: int,
         st.append(flat[o:o + 32]); o += 32
         st.append(flat[o:o + 32]); o += 32
     luma, cbp, crp, ml, mu = derive_all_np(
-        tuple(st[0:4]), tuple(st[4:8]), tuple(st[8:12]), qp, qp_c, xp=np,
+        tuple(st[0:4]), tuple(st[4:8]), tuple(st[8:12]), qp, qp_c,
         slice_p=slice_p)
     filt = tuple(apply_sao(r, p, c).to(torch.uint8)
                  for r, p, c in ((ry, luma, ctu), (ru, cbp, ctu // 2),

@@ -21,12 +21,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from homerhevc_tpu.pipeline.p_golden import PAD
-
 from .. import tables
 from ..device import I32, edge_pad
 from ..ops import sao as sao_ops
 from . import p_torch
+from .p_torch import PAD
 
 
 # ---------------------------------------------------------------------------

@@ -19,16 +19,19 @@ import functools
 import numpy as np
 import torch
 
-from homerhevc_tpu.ops import interp
-from homerhevc_tpu.pipeline.p_golden import PAD
-
 from .. import tables
 from ..device import I32, const, edge_pad
 from ..ops import deblock as dbk
+from ..ops import interp
 from ..ops import quant as quant_ops
 from ..ops import transforms as tx_ops
 from ..ops.gather import gather_windows
 from ..ops.me import integer_me
+
+# Edge padding of the reference planes: the largest search range of the
+# reference's hierarchical ME (64) + the 8-tap filter support (as
+# homerhevc_tpu/pipeline/p_golden.py).
+PAD = 72
 
 # Search ranges above this take the reference's hierarchical ME, which is
 # not ported; at or below it the dense full-window sweep runs.
@@ -86,7 +89,9 @@ def _p_stage(y_pad, u_pad, v_pad, ry, ru, rv, *, B: int, qp, search: int,
     cur = y_pad.to(I32)
     n = 2 * search + 1
     mvcost = (lam * const(_mv_bits_grid(search), dev)) >> 8
-    best_cost, best_o = integer_me(cur, ry, mvcost, B=B, search=search,
+    # the kernel takes the uint8 or int16 plane as it is (no conversion
+    # launch in front of it)
+    best_cost, best_o = integer_me(y_pad, ry, mvcost, B=B, search=search,
                                    pad=PAD, kernels=kernels)
     ivy = best_o // n - search
     ivx = best_o % n - search
@@ -246,19 +251,20 @@ def _level_encode(cur, u_pad, v_pad, ry, ru, rv, ivy, ivx, *, S, qp, qp_c,
     coefx = ctab[(mvx & 7).to(torch.int64)]                  # (nb, 4)
     coefy = ctab[(mvy & 7).to(torch.int64)]
 
-    def chroma_pred(refp, base_y, base_x):
-        wc = gather_windows(refp, base_y, base_x, S2 + 3,
-                            kernels=kernels).to(I32)         # (nb, S2+3, S2+3)
-        hs = sum(coefx[:, k, None, None] * wc[:, :, k:k + S2]
-                 for k in range(4))                          # (nb, S2+3, S2)
-        vv = sum(coefy[:, k, None, None] * hs[:, k:k + S2, :]
+    def chroma_pred(refps, base_y, base_x):
+        # both planes share the starts: one gather (one kernel launch) and
+        # one pass of the filter over the (P, nb, ...) stack
+        wc = gather_windows(refps, base_y, base_x, S2 + 3,
+                            kernels=kernels).to(I32)    # (P, nb, S2+3, S2+3)
+        hs = sum(coefx[:, k, None, None] * wc[..., k:k + S2]
+                 for k in range(4))                     # (P, nb, S2+3, S2)
+        vv = sum(coefy[:, k, None, None] * hs[..., k:k + S2, :]
                  for k in range(4)) >> 6
         return ((vv + 32) >> 6).clamp(0, 255)
 
     by_c = r * S2 + (mvy >> 3) + PAD // 2 - 1
     bx_c = c * S2 + (mvx >> 3) + PAD // 2 - 1
-    pred_u = chroma_pred(ru, by_c, bx_c)
-    pred_v = chroma_pred(rv, by_c, bx_c)
+    pred_u, pred_v = chroma_pred((ru, rv), by_c, bx_c)
     blk_u = _blocks(u_pad.to(I32), S2)
     blk_v = _blocks(v_pad.to(I32), S2)
 

@@ -5,9 +5,13 @@ against the JAX package's Pallas kernels, run in interpret mode on the CPU.
   ops/gather.py gather_windows_plain vs ops/gather_pallas.gather_windows_grid
                                        and p_jax._gather_win (CPU path)
 
-Tolerance: exact equality (integer arithmetic and data movement). The CUDA
-kernels themselves are held against these plain versions on the card by
-chip_smoke.py.
+Samples are 8-bit (0..255), as uint8 or int16 planes: that is the kernels'
+contract. A pair of planes goes through one gather call and must equal two
+calls of the Pallas gather.
+
+Tolerance: exact equality (integer arithmetic and data movement). On the CPU
+the port runs the plain versions; the CUDA kernels themselves are held
+against these plain versions on the card by chip_smoke.py (phase 3).
 """
 
 import jax.numpy as jnp
@@ -57,6 +61,28 @@ def test_integer_me_plain_matches_pallas(kind):
     cw, iw = me.integer_me(torch.as_tensor(cur), torch.as_tensor(ref),
                            torch.as_tensor(mv), B=32, search=8, pad=PAD)
     assert torch.equal(cw, ct) and torch.equal(iw, it)
+
+
+@pytest.mark.parametrize("kind,dtype,search", [
+    ("random", torch.uint8, 8), ("random", torch.int16, 8),
+    ("constant", torch.uint8, 8), ("constant", torch.int16, 8),
+    ("texture", torch.uint8, 8), ("random", torch.uint8, 16),
+])
+def test_integer_me_plain_dtypes_match_pallas(kind, dtype, search):
+    """uint8 and int16 planes of 0..255 samples give the Pallas kernel's
+    result, ties (first minimum) and a second search range included."""
+    cur, ref, mv = _me_inputs(kind, S=search)
+    assert cur.min() >= 0 and cur.max() <= 255
+    cj, ij = integer_me_pallas(jnp.asarray(cur), jnp.asarray(ref),
+                               jnp.asarray(mv), B=32, search=search, pad=PAD,
+                               interpret=True)
+    ct, it = me.integer_me(torch.as_tensor(cur).to(dtype),
+                           torch.as_tensor(ref).to(dtype),
+                           torch.as_tensor(mv), B=32, search=search, pad=PAD)
+    np.testing.assert_array_equal(np.asarray(cj), ct.numpy())
+    np.testing.assert_array_equal(np.asarray(ij), it.numpy())
+    if kind == "constant":
+        assert int(it.max()) == 0            # every offset ties: the first
 
 
 # call sites of the P stage at CU 32, search 8, on a 128x96 frame:
@@ -117,3 +143,44 @@ def test_gather_plain_matches_gather_win_clamped(site):
                                 torch.as_tensor(bx), G)
     np.testing.assert_array_equal(np.asarray(want).transpose(2, 0, 1),
                                   got.numpy())
+
+
+@pytest.mark.parametrize("site", list(SITES))
+def test_gather_plain_pair_matches_two_pallas_calls(site):
+    """A tuple of planes of one shape -> (P, nb, G, G), equal to one Pallas
+    gather per plane (the two chroma planes share their starts)."""
+    plane, by, bx, nby, nbx, lo, band_h = _gather_inputs(site)
+    other = np.random.default_rng(12).integers(
+        -300, 300, plane.shape).astype(np.int16)
+    G = SITES[site]["G"]
+    want = [gather_windows_grid(jnp.asarray(p), jnp.asarray(by),
+                                jnp.asarray(bx), nby=nby, nbx=nbx, G=G,
+                                S_row=SITES[site]["S_row"], lo=lo,
+                                band_h=band_h, interpret=True)
+            for p in (plane, other)]
+    pair = (torch.as_tensor(plane), torch.as_tensor(other))
+    got = gather.gather_windows_plain(pair, torch.as_tensor(by),
+                                      torch.as_tensor(bx), G)
+    assert got.shape == (2, nby * nbx, G, G)
+    np.testing.assert_array_equal(np.stack([np.asarray(w) for w in want]),
+                                  got.numpy())
+    # the dispatching wrapper takes the plain version for CPU tensors
+    assert torch.equal(gather.gather_windows(pair, torch.as_tensor(by),
+                                             torch.as_tensor(bx), G), got)
+
+
+def test_kernel_wrappers_refuse_cpu_tensors_and_bad_block_sizes():
+    """The CUDA wrappers launch or raise: a CPU tensor is refused, never
+    handed to the plain version behind the caller's back."""
+    cur, ref, mv = _me_inputs("random")
+    args = (torch.as_tensor(cur), torch.as_tensor(ref), torch.as_tensor(mv))
+    with pytest.raises(ValueError, match="CUDA"):
+        me.integer_me_cuda(*args, B=32, search=8, pad=PAD)
+    plane, by, bx, *_ = _gather_inputs("luma")
+    with pytest.raises(ValueError, match="CUDA"):
+        gather.gather_windows_cuda(torch.as_tensor(plane),
+                                   torch.as_tensor(by), torch.as_tensor(bx),
+                                   41)
+    with pytest.raises(ValueError, match="planes"):
+        gather.gather_windows_cuda((), torch.as_tensor(by),
+                                   torch.as_tensor(bx), 41)

@@ -10,7 +10,9 @@ versions) against homerhevc_tpu.api.HomerEncoder(backend="jax").
     same planes give byte-identical P AUs;
   * settings outside the slice raise NotImplementedError.
 
-Tolerance: exact, byte for byte.
+Each package gets its own EncoderConfig, built from one keyword dictionary
+(the port refuses the other package's class). Tolerance: exact, byte for
+byte.
 """
 
 import dataclasses
@@ -21,8 +23,9 @@ import numpy as np
 import pytest
 
 from homerhevc_tpu.api import HomerEncoder as JaxEncoder
-from homerhevc_tpu.config import (BitrateMode, PerformanceMode, RDMode)
 from homerhevc_tpu_torch.api import HomerEncoder
+from homerhevc_tpu_torch.config import BitrateMode, PerformanceMode, RDMode
+from homerhevc_tpu_torch.utils import fixtures as fx
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_aus.json")
@@ -40,16 +43,14 @@ def _tools():
 
 @pytest.fixture(scope="module")
 def small():
-    fx = _tools()
     r = fx.RUNS["small"]
     cfg = fx.slice_config(r["width"], r["height"])
     return fx, r, fx.clip("small"), cfg
 
 
 @pytest.fixture(scope="module")
-def jax_aus(small):
-    fx, _, _, _ = small
-    return fx.jax_run("small")
+def jax_aus():
+    return _tools().jax_run("small")
 
 
 @pytest.fixture(scope="module")
@@ -67,8 +68,7 @@ def test_session_matches_jax(jax_aus, port_aus):
         assert a == b, f"AU {k} differs: {len(a)} vs {len(b)} bytes"
 
 
-def test_fixture_matches_live_jax(small, jax_aus):
-    fx = small[0]
+def test_fixture_matches_live_jax(jax_aus):
     with open(FIXTURE) as f:
         want = json.load(f)["small"]["aus"]
     assert fx.au_digest(jax_aus) == want
@@ -89,7 +89,7 @@ def test_per_frame_path_matches_chunked(small, port_aus):
 
 
 def test_port_stream_decodes(small):
-    from homerhevc_tpu.validate import de265
+    from homerhevc_tpu_torch.validate import de265
     if not de265.available():
         pytest.skip("libde265 not available")
     _, _, frames, cfg = small
@@ -112,7 +112,10 @@ def test_seed_reference_carry_over(small):
     first.encode_frames(frames[:2], chunk=1)
     ref = tuple(p.numpy() for p in first._ref)
     tail = frames[2:4]
-    jax_enc = JaxEncoder(cfg, backend="jax", fetch_recon=False)
+    jax_cfg = dataclasses.replace(
+        _tools().jax_config(cfg.width, cfg.height),
+        reinit_gop_on_scene_change=False)
+    jax_enc = JaxEncoder(jax_cfg, backend="jax", fetch_recon=False)
     jax_enc.seed_reference(ref, poc=2, last_idr=0)
     port = HomerEncoder(cfg, device="cpu", fetch_recon=False)
     port.seed_reference(ref, poc=2, last_idr=0)

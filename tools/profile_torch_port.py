@@ -44,16 +44,15 @@ def _window(name, fn):
 
 
 def main() -> int:
-    sys.path[:0] = [ROOT, os.path.join(ROOT, "tools")]
+    sys.path.insert(0, ROOT)
     import numpy as np
     import torch
 
-    from homerhevc_tpu.utils.synth import synth_clip
     from homerhevc_tpu_torch.api import HomerEncoder
     from homerhevc_tpu_torch.device import require_cuda
     from homerhevc_tpu_torch.pipeline import intra_torch, p_chunk
-
-    from make_torch_fixtures import slice_config
+    from homerhevc_tpu_torch.utils.fixtures import slice_config
+    from homerhevc_tpu_torch.utils.synth import synth_clip
 
     dev = require_cuda()
 
