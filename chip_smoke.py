@@ -12,21 +12,36 @@ Phases, each of which raises on failure (non-zero exit, no result line):
                equality: me_sad on real, random and all-tie data, from
                uint8 and int16 planes, at 736x1280 (B 32, S 16), at the
                128x96 fixture's shapes and at search 8; gather_win on real
-               and random data with planted out-of-range starts, one plane
-               (G 41) and the chroma pair in one launch (G 19), at both
-               sizes. Then times from CUDA events at the 720p call sites:
-               kernel, plain version, an empty kernel of the same grid
-               (floor_ms), one PyTorch indexing call for the same gather
-               (library_ms), and the bound computed from the shapes
-  4. slice   — HomerEncoder(cfg).encode_frames on synth_clip(1280, 720, 17):
-               one IDR then two chunks of 8 P frames at pipeline depth 2;
+               and random data with planted out-of-range starts, from
+               uint8 and int16 planes, at every call site of both paths at
+               both sizes: the fixed-CU path's luma window (G 41) and chroma
+               pair in one launch (G 19), and the quadtree path's six (the
+               hierarchical search's refine windows G 22 and 38, luma G 25
+               and 41, chroma pairs G 11 and 19). Then times from CUDA
+               events at the 720p call sites: kernel, plain version, an
+               empty kernel of the same grid (floor_ms), one PyTorch
+               indexing call for the same gather (library_ms), the any-G
+               kernel at the same G (generic_ms), and the bound computed
+               from the shapes
+  4. paths   — each main path through HomerEncoder(cfg).encode_frames on
+               the default device, with the launch counts set to 0 just
+               before it and read just after:
+                 fastest_720p: FASTEST_COMPUTATION, search 16, on
+                   synth_clip(1280, 720, 9): one IDR and a chunk of 8 P
+                   frames; me_sad 8 launches, gather_win 16;
+                 fast_720p: FAST_COMPUTATION, search 64 (the configuration
+                   bench.py times) on the same clip: split-RDO IDR, then a
+                   chunk of 8 quadtree P frames; gather_win 48 launches
+                   (six per P frame), me_sad none;
                every AU's SHA-256 must equal tests/fixtures/
-               torch_port_aus.json (written from the JAX package); the run
-               must have launched me_sad 16 times and gather_win 32 times;
-               the same run with kernels=False must give identical AUs;
-               libde265 decode check where the library loads; the 128x96
-               fixture clip too
-  5. timing  — after warm-up, one window of 16 P frames end to end
+               torch_port_aus.json (written from the JAX package); the same
+               run with kernels=False must give identical AUs and launch
+               nothing; libde265 decode check where the library loads; the
+               128x96 fixture clips of both paths too
+  5. timing  — after warm-up: 16 P frames end to end on the fixed-CU path,
+               8 on the quadtree path; a P chunk's device stage on each; the
+               IDR device stage of each, pass A and pass B apart for the
+               split-RDO IDR
 
 The last three lines are the per-kernel JSON record, the card's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -219,18 +234,62 @@ def check_me(dev, frames, H, W, B, S, label):
     return cases, worst
 
 
-def check_gather(dev, frames, best, H, W, B, S, label):
-    """gather_win == plain at both call sites of one size, on real starts
-    and on random data with planted out-of-range starts; returns the
-    sites and the largest absolute difference seen (0, or the check
-    raises)."""
+def fast_gather_sites(dev, cur_frame, ref_frame, H, W, search, qp=32):
+    """The quadtree P stage's six gather call sites at one size, from the
+    hierarchical search of `cur_frame` against `ref_frame` (plain versions):
+    {name: (planes, by, bx, G)}; per CU size S in (16, 32) the refine window
+    of the search (G = S + 6, starts from the pyramid picks), the luma
+    support window (G = S + 9) and the chroma pair (G = S/2 + 3), both with
+    starts from the integer MVs."""
+    import torch
+
+    from homerhevc_tpu_torch.device import edge_pad
+    from homerhevc_tpu_torch.pipeline import p_torch
+    from homerhevc_tpu_torch.tables import LAMBDA_ME_FX_P
+
+    PAD = p_torch.PAD
+    i32 = torch.int32
+    planes = [edge_pad(torch.as_tensor(pad_plane(p, h, w), device=dev)
+                       .to(torch.int16), pad)
+              for p, h, w, pad in zip(ref_frame, (H, H // 2, H // 2),
+                                      (W, W // 2, W // 2),
+                                      (PAD, PAD // 2, PAD // 2))]
+    cur = torch.as_tensor(pad_plane(cur_frame[0], H, W), device=dev).to(i32)
+    lam = torch.tensor(int(LAMBDA_ME_FX_P[qp]), dtype=i32, device=dev)
+    coarse = p_torch._me_hier_coarse(cur, planes[0], sizes=(16, 32),
+                                     search=search, lam=lam)
+    ints = p_torch._me_hier(cur, planes[0], sizes=(16, 32), search=search,
+                            lam=lam, kernels=False)
+    sites = {}
+    for S in (16, 32):
+        nbx = W // S
+        bi = torch.arange((H // S) * nbx, device=dev, dtype=i32)
+        r, c = bi // nbx, bi % nbx
+        cy, cx, _ = coarse[S]
+        vy, vx = (t.reshape(-1) for t in ints[S][:2])
+        S2 = S // 2
+        sites[f"hier refine G={S + 6}"] = (
+            planes[0], r * S + cy - 3 + PAD, c * S + cx - 3 + PAD, S + 6)
+        sites[f"tree luma G={S + 9}"] = (
+            planes[0], r * S + vy - 4 + PAD, c * S + vx - 4 + PAD, S + 9)
+        sites[f"tree chroma pair G={S2 + 3}"] = (
+            (planes[1], planes[2]),
+            r * S2 + ((4 * vy) >> 3) + PAD // 2 - 1,
+            c * S2 + ((4 * vx) >> 3) + PAD // 2 - 1, S2 + 3)
+    return sites
+
+
+def check_gather(dev, sites, label):
+    """gather_win == plain at every call site of `sites`, on real starts
+    and on random data with planted out-of-range starts, from int16 planes
+    through the kernel's launcher and from uint8 planes through the wrapper;
+    returns the largest absolute difference seen (0, or the check raises)."""
     import numpy as np
     import torch
 
     from homerhevc_tpu_torch.ops import gather
 
     rng = np.random.default_rng(2)
-    sites = gather_sites(dev, frames[0], best, H, W, B, S)
     worst = 0
     for name, (plane, by, bx, G) in sites.items():
         first = plane[0] if isinstance(plane, tuple) else plane
@@ -268,7 +327,20 @@ def check_gather(dev, frames, best, H, W, B, S, label):
             worst = max(worst, err)
             log(f"  gather_win == plain at {name} on {kind} data ({label}, "
                 f"plane {Hp}x{Wp}, nb={by.shape[0]})")
-    return sites, worst
+        # the wrapper on uint8 planes (it widens them, then launches)
+        p8 = (tuple(q.to(torch.uint8) for q in plane)
+              if isinstance(plane, tuple) else plane.to(torch.uint8))
+        before = gather.GATHER_WIN.launches
+        a = gather.gather_windows(p8, by, bx, G)
+        if gather.GATHER_WIN.launches != before + 1:
+            raise AssertionError("gather_windows did not launch the kernel "
+                                 f"on a CUDA tensor at {name}")
+        b = gather.gather_windows_plain(p8, by, bx, G)
+        err = int((a.to(torch.int32) - b.to(torch.int32)).abs().max())
+        if a.shape != b.shape or err:
+            raise AssertionError(f"gather_win != plain at {name} (uint8, "
+                                 f"{label}): max abs difference {err}")
+    return worst
 
 
 def phase_kernels(dev, frames, small_frames):
@@ -325,23 +397,50 @@ def phase_kernels(dev, frames, small_frames):
         floor_ms=me_floor_ms, library_ms=None)}
 
     _, best = me.integer_me_plain(cur, ref, mc, B=B, search=S, pad=PAD)
-    sites, gw_err = check_gather(dev, frames, best, H, W, B, S, "736x1280")
+    sites = gather_sites(dev, frames[0], best, H, W, B, S)
+    gw_err = check_gather(dev, sites, "736x1280, fixed CU")
     cur_s, ref_s, mc_s = small["real uint8"]
     _, best_s = me.integer_me_plain(cur_s, ref_s, mc_s, B=B, search=S,
                                     pad=PAD)
-    gw_err = max(gw_err, check_gather(dev, small_frames, best_s, 96, 128, B,
-                                      S, "96x128")[1])
+    gw_err = max(gw_err, check_gather(
+        dev, gather_sites(dev, small_frames[0], best_s, 96, 128, B, S),
+        "96x128, fixed CU"))
+    # the quadtree path's six sites, search 64 (frame 1 against frame 0)
+    fast_sites = fast_gather_sites(dev, frames[1], frames[0], H, W, 64)
+    gw_err = max(gw_err, check_gather(dev, fast_sites, "736x1280, quadtree"))
+    gw_err = max(gw_err, check_gather(
+        dev, fast_gather_sites(dev, small_frames[1], small_frames[0], 96,
+                               128, 64), "96x128, quadtree"))
+    sites.update(fast_sites)
+
+    def generic(plane, by, bx, G):
+        """The any-G kernel at this site (a yardstick, not counted)."""
+        planes = plane if isinstance(plane, tuple) else (plane,)
+        out = torch.empty((len(planes), by.shape[0], G, G),
+                          dtype=torch.int16, device=dev)
+        ptrs = [p.data_ptr() for p in planes] + [None] * (
+            gather.MAX_PLANES - len(planes))
+        gather.GATHER_WIN.launch_other(
+            "gather_win_generic_launch", *ptrs, len(planes), by.data_ptr(),
+            bx.data_ptr(), out.data_ptr(), by.shape[0], *planes[0].shape, G,
+            stream())
+        return out
 
     times = {}
     for name, (plane, by, bx, G) in sites.items():
         nplanes = len(plane) if isinstance(plane, tuple) else 1
         nb = by.shape[0]
+        by, bx = by.to(torch.int32).contiguous(), bx.to(torch.int32).contiguous()
         y0, x0 = clamped_starts(plane, by, bx, G)
+        want = gather.gather_windows_plain(plane, by, bx, G)
         lib = torch.stack(library_gather(plane, y0, x0, G))
-        if not torch.equal(lib.reshape(-1), gather.gather_windows_plain(
-                plane, by, bx, G).reshape(-1)):
+        if not torch.equal(lib.reshape(-1), want.reshape(-1)):
             raise AssertionError(f"library gather != plain at {name}")
+        if not torch.equal(generic(plane, by, bx, G).reshape(-1),
+                           want.reshape(-1)):
+            raise AssertionError(f"any-G kernel != plain at {name}")
         t = dict(
+            site=name, G=G, nb=nb, planes=nplanes,
             ms=cuda_ms(lambda: gather.gather_windows_cuda(plane, by, bx, G),
                        100),
             plain_ms=cuda_ms(lambda: gather.gather_windows_plain(
@@ -349,25 +448,44 @@ def phase_kernels(dev, frames, small_frames):
             floor_ms=cuda_ms(lambda: gather.GATHER_WIN.launch_floor(
                 nb, nplanes, stream()), 100),
             library_ms=cuda_ms(lambda: library_gather(plane, y0, x0, G), 50),
+            generic_ms=cuda_ms(lambda: generic(plane, by, bx, G), 100),
             # every window read once and written once, and the starts
             bound_ms=(2 * nplanes * nb * G * G * 2 + 2 * nb * 4)
-            / HBM_BYTES_PER_S * 1e3)
+            / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
         times[name] = t
-        log(f"  gather_win {name}: kernel {t['ms']:.4f} ms, plain "
+        log(f"  gather_win {name} (nb {nb}): kernel {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms, empty grid {t['floor_ms']:.4f} ms, "
-            f"one indexing call per plane {t['library_ms']:.4f} ms, bound "
-            f"{t['bound_ms']:.4f} ms by bytes")
+            f"one indexing call per plane {t['library_ms']:.4f} ms, any-G "
+            f"kernel {t['generic_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+            "by bytes")
+    keys = ("ms", "plain_ms", "floor_ms", "library_ms", "bound_ms")
     luma, chroma = times["luma G=41"], times["chroma pair G=19"]
     records["gather_win"] = dict(
         name="gather_win", route="cuda", source=gather.GATHER_WIN.source,
         replaces="homerhevc_tpu/ops/gather_pallas.py:30", max_abs_err=gw_err,
-        bound_by="bytes", **luma,
-        **{f"chroma_pair_{k}": v for k, v in chroma.items()})
+        bound_by="bytes", **{k: luma[k] for k in keys},
+        **{f"chroma_pair_{k}": chroma[k] for k in keys},
+        sites=list(times.values()))
     return records
 
 
-def phase_slice(dev, frames, fixture):
-    """The port's main path at 720p; returns the launch counts."""
+# gather_win launches per P frame: the fixed-CU stage gathers the luma
+# window and the chroma pair; the quadtree stage does so at CU 16 and at CU
+# 32, and above the dense-search threshold its hierarchical search gathers
+# one refine window per CU size
+PATHS = {
+    "fastest_720p": dict(run="720p", frames=9, me_sad=1, gather_win=2),
+    "fast_720p": dict(run="fast_720p", frames=9, me_sad=0, gather_win=6),
+}
+SMALL_RUNS = {"fastest_720p": "small", "fast_720p": "fast_small"}
+
+
+def run_path(dev, name, fixture):
+    """One main path at 720p through the session's entry points on the
+    default device; returns its launch counts and the reference planes
+    behind the IDR (numpy), from which the comparison and timing sessions
+    continue (seed_reference) without coding the IDR again: no kernel runs
+    in an IDR, and the split-RDO IDR takes most of a minute."""
     import torch
 
     from homerhevc_tpu_torch.api import HomerEncoder
@@ -375,8 +493,12 @@ def phase_slice(dev, frames, fixture):
     from homerhevc_tpu_torch.ops.me import ME_SAD
     from homerhevc_tpu_torch.utils import fixtures as fx
 
-    want = fixture["720p"]["aus"]
-    cfg = fx.slice_config(1280, 720)
+    path = PATHS[name]
+    run = fx.RUNS[path["run"]]
+    n = path["frames"]
+    frames = fx.clip(path["run"])[:n]
+    want = fixture[path["run"]]["aus"][:n]
+    cfg = fx.run_config(path["run"])
     kernels = (ME_SAD, GATHER_WIN)
     for k in kernels:
         k.launches = 0
@@ -384,24 +506,26 @@ def phase_slice(dev, frames, fixture):
     enc = HomerEncoder(cfg)                  # no device given: the card
     if enc.device.type != "cuda":
         raise AssertionError(f"default device is {enc.device}, not the card")
-    aus = enc.encode_frames(frames, chunk=8)
+    aus = enc.encode_frames(frames[:1])
+    ref0 = tuple(p.cpu().numpy() for p in enc._ref)
+    aus += enc.encode_frames(frames[1:], chunk=run["chunk"])
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = {k.name: k.launches for k in kernels}
-    log(f"  720p x{len(frames)} through the kernels: {secs:.2f} s "
-        f"(first run, includes warm-up); launches {launches}")
-    # 16 P frames: one SAD sweep each, one luma gather and one gather of
-    # the chroma pair each
-    n_p = len(frames) - 1
-    if launches != {"me_sad": n_p, "gather_win": 2 * n_p}:
-        raise AssertionError(f"launches {launches}, expected me_sad {n_p} "
-                             f"and gather_win {2 * n_p}")
+    log(f"  {name}: {cfg.performance_mode.name}, search "
+        f"{cfg.me_search_range}, {n} frames through the kernels: "
+        f"{secs:.2f} s (first run, includes warm-up); launches {launches}")
+    n_p = n - 1
+    expect = {k.name: path[k.name] * n_p for k in kernels}
+    if launches != expect:
+        raise AssertionError(f"{name}: launches {launches}, expected "
+                             f"{expect} for {n_p} P frames")
     got = fx.au_digest(aus)
     bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
     if len(got) != len(want) or bad:
-        raise AssertionError(f"720p AUs differ from the JAX fixture at "
+        raise AssertionError(f"{name}: AUs differ from the JAX fixture at "
                              f"{bad} (sizes {[g['len'] for g in got]})")
-    log(f"  720p AUs == JAX fixture ({len(got)} AUs, "
+    log(f"  {name}: AUs == JAX fixture ({len(got)} AUs, "
         f"{sum(g['len'] for g in got)} bytes; IDR {got[0]['len']} bytes)")
 
     decoded = fx.decode_check(aus, enc._ref[0].cpu().numpy()[:720, :1280])
@@ -413,84 +537,104 @@ def phase_slice(dev, frames, fixture):
         log("  libde265 decode check: ran, last frame == port recon")
     enc.close()
 
-    before = {k.name: k.launches for k in kernels}
     plain = HomerEncoder(cfg, device=dev, kernels=False)
-    aus_plain = plain.encode_frames(frames, chunk=8)
+    plain.seed_reference(ref0, poc=1, last_idr=0)
+    aus_plain = plain.encode_frames(frames[1:], chunk=run["chunk"])
     plain.close()
-    if aus_plain != aus:
-        raise AssertionError("kernels=False AUs differ from kernel AUs")
-    if {k.name: k.launches for k in kernels} != before:
-        raise AssertionError("kernels=False run launched a kernel")
-    log("  kernels=False run: AUs identical")
+    if aus_plain != aus[1:]:
+        raise AssertionError(f"{name}: kernels=False P AUs differ from "
+                             "kernel AUs")
+    if {k.name: k.launches for k in kernels} != launches:
+        raise AssertionError(f"{name}: kernels=False run launched a kernel")
+    log(f"  {name}: kernels=False run of the {n_p} P frames: AUs identical, "
+        "nothing launched")
 
-    small = fixture["small"]
+    small = fixture[SMALL_RUNS[name]]
     for use_kernels in (True, False):
-        enc = HomerEncoder(fx.slice_config(small["width"], small["height"]),
-                           device=dev, kernels=use_kernels)
-        s_aus = enc.encode_frames(fx.clip("small"), chunk=small["chunk"])
+        enc = HomerEncoder(fx.run_config(SMALL_RUNS[name]), device=dev,
+                           kernels=use_kernels)
+        s_aus = enc.encode_frames(fx.clip(SMALL_RUNS[name]),
+                                  chunk=small["chunk"])
         enc.close()
         if fx.au_digest(s_aus) != small["aus"]:
-            raise AssertionError("128x96 AUs differ from the JAX fixture "
+            raise AssertionError(f"{SMALL_RUNS[name]}: 128x96 AUs differ "
+                                 "from the JAX fixture "
                                  f"(kernels={use_kernels})")
-    log(f"  128x96 AUs == JAX fixture ({len(s_aus)} AUs), with and without "
-        "kernels")
-    return launches
+    log(f"  {SMALL_RUNS[name]}: 128x96 AUs == JAX fixture ({len(s_aus)} "
+        "AUs), with and without kernels")
+    return launches, ref0
 
 
-def phase_timing(dev, frames, card: str):
+def synced_ms(fn, reps: int = 1) -> float:
+    """Least host-clock milliseconds of `reps` synchronised calls of fn."""
+    import torch
+    best = None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t) * 1e3
+        best = dt if best is None else min(best, dt)
+    return best
+
+
+def phase_timing(dev, name, n_p: int, ref0, card: str):
+    """End-to-end and device-stage times of one path at 720p; the sessions
+    continue from the planes `ref0` behind the IDR."""
     import numpy as np
     import torch
 
     from homerhevc_tpu_torch.api import HomerEncoder
     from homerhevc_tpu_torch.pipeline import intra_torch, p_chunk
-    from homerhevc_tpu_torch.utils.fixtures import slice_config
+    from homerhevc_tpu_torch.utils import fixtures as fx
 
-    cfg = slice_config(1280, 720)
+    run = PATHS[name]["run"]
+    frames = fx.clip("720p")[:n_p + 1]         # both runs share the clip
+    cfg = fx.run_config(run)
     enc = HomerEncoder(cfg, device=dev)
-    enc.encode_frames(frames[:1])                   # IDR
+    enc.seed_reference(ref0, poc=1, last_idr=0)
     enc.encode_frames(frames[1:9], chunk=8)         # warm-up chunk
     enc2 = HomerEncoder(cfg, device=dev)
-    enc2.encode_frames(frames[:1])
+    enc2.seed_reference(ref0, poc=1, last_idr=0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    aus = enc2.encode_frames(frames[1:17], chunk=8)
+    aus = enc2.encode_frames(frames[1:], chunk=8)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    fps = 16 / secs
-    log(f"  16 P frames end to end: {secs * 1000:.1f} ms -> {fps:.2f} fps "
-        f"({sum(len(a) for a in aus)} bytes) on {card}")
+    log(f"  {name}: {n_p} P frames end to end: {secs * 1000:.1f} ms -> "
+        f"{n_p / secs:.2f} fps ({sum(len(a) for a in aus)} bytes) on {card}")
 
     # device-only view of the same work: one chunk of 8 P frames, and the IDR
     padded = [enc2._pad_frame(*f) for f in frames[1:9]]
     ys, us, vs = (torch.as_tensor(np.stack([p[k] for p in padded]),
                                   device=dev) for k in range(3))
-    qps = torch.full((8,), 32, dtype=torch.int32, device=dev)
+    qps = torch.full((8,), cfg.qp, dtype=torch.int32, device=dev)
     ref = enc._ref
-
-    def chunk():
-        p_chunk.p_chunk_device(ys, us, vs, *ref, qps, ctu=32, search=16,
-                               me_precision=2, sign_hiding=True,
-                               deblock=True, sao=True, cap=enc._chunk_cap)
-
-    wall = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        chunk()
-        torch.cuda.synchronize()
-        wall.append(time.perf_counter() - t)
-    log(f"  P chunk of 8 (device, sync'd): {min(wall) * 1000:.1f} ms "
-        f"-> {8 / min(wall):.2f} fps")
+    ms = synced_ms(lambda: p_chunk.p_chunk_device(
+        ys, us, vs, *ref, qps, deblock=True, sao=True, cap=enc._chunk_cap,
+        tree=enc.inter_split, **enc._tree_kwargs()), 3)
+    log(f"  {name}: P chunk of 8 (device, sync'd): {ms:.1f} ms -> "
+        f"{8e3 / ms:.2f} fps on {card}")
     yp = tuple(torch.as_tensor(p, device=dev)
                for p in enc2._pad_frame(*frames[0]))
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    intra_torch.encode_frame_intra(*yp, B=32, qp=32, sign_hiding=True)
-    torch.cuda.synchronize()
-    log(f"  IDR device stage: {(time.perf_counter() - t) * 1000:.1f} ms")
+    tu = enc.params.max_tr_depth_intra
+    ms = synced_ms(lambda: intra_torch.encode_frame_intra(
+        *yp, B=32, qp=cfg.qp, sign_hiding=True, split_rdo=enc.intra_split,
+        tu_depth=tu))
+    line = f"  {name}: IDR device stage: {ms:.1f} ms"
+    if enc.intra_split:
+        qp_t = torch.tensor(cfg.qp, dtype=torch.int32, device=dev)
+        from homerhevc_tpu_torch import tables
+        lam = torch.as_tensor(tables.LAMBDA_FX, device=dev)[qp_t]
+        ms_a = synced_ms(lambda: intra_torch._open_loop_maps(
+            yp[0], B=32, qp=qp_t, lam_fx=lam, strong_smoothing=True,
+            tu_split=bool(tu)))
+        line += (f", of which pass A (open-loop decisions) {ms_a:.1f} ms "
+                 f"and pass B (closed-loop wavefront) {ms - ms_a:.1f} ms")
+    log(line + f" on {card}")
     enc.close()
     enc2.close()
-    return fps
 
 
 def main() -> int:
@@ -535,13 +679,18 @@ def main() -> int:
     log("[3/5] kernels vs plain (exact equality):")
     records = phase_kernels(dev, frames, clip("small"))
 
-    log("[4/5] slice at 1280x720:")
-    launches = phase_slice(dev, frames, fixture)
-    for name, cnt in launches.items():
-        records[name]["launches"] = cnt
+    log("[4/5] main paths at 1280x720:")
+    by_path = {name: run_path(dev, name, fixture) for name in PATHS}
+    for kernel, rec in records.items():
+        rec["launches_by_path"] = {p: c[0][kernel]
+                                   for p, c in by_path.items()}
+        rec["launches"] = sum(rec["launches_by_path"].values())
+        if not rec["launches"]:
+            raise AssertionError(f"{kernel} was launched on no main path")
 
     log("[5/5] timing:")
-    phase_timing(dev, frames, card)
+    phase_timing(dev, "fastest_720p", 16, by_path["fastest_720p"][1], card)
+    phase_timing(dev, "fast_720p", 8, by_path["fast_720p"][1], card)
 
     print(json.dumps({"kernels": list(records.values())}))
     print(card)

@@ -9,9 +9,12 @@ entropy coding with its own build of libhenc, AU assembly, the host SAO and
 merge/AMVP derivations, synthetic clips, libde265 validation), under the
 same names and layout. Only the tests import both packages.
 
-Supported slice: the fixed-CU P path (`performance_mode=FASTEST_COMPUTATION`,
-`cu_size=32`, `me_search_range <= 24`, fixed QP, rd_mode FULL). Everything
-else raises NotImplementedError naming the setting.
+Supported configurations, at `cu_size=32`, fixed QP, rd_mode FULL, IPPP:
+FASTEST_COMPUTATION (IDR at CU = TU = 32, fixed-CU P frames),
+FASTER_COMPUTATION (split-RDO IDR, fixed-CU P frames) and FAST_COMPUTATION
+(split-RDO IDR, inter CU quadtree P frames with hierarchical ME, inter TU
+split and intra-in-P). Everything else raises NotImplementedError naming
+the setting.
 
 Layer map:
   api.py                  — HomerEncoder session (IDR + chunked P frames);
@@ -25,12 +28,14 @@ Layer map:
                             (device and host derivation), inter candidate
                             decisions, and the two kernel-backed ops (me.py,
                             gather.py)
-  pipeline/               — intra_torch (IDR wavefront), p_torch (P stage),
-                            p_chunk (K-frame device loop + wire), assemble
+  pipeline/               — intra_torch (IDR wavefront, fixed CU or decided
+                            quadtree), p_torch (fixed-CU and quadtree P
+                            stages), p_chunk (K-frame device loop + wire),
+                            assemble
                             (headers + slice data -> Annex-B)
   kernels/                — hand-written CUDA kernels for sm_90a + build
   utils/, validate/       — synthetic clips, the reference runs' fixtures
                             helpers, libde265 decode check
 """
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"

@@ -4,12 +4,15 @@
     aus = enc.encode_frames(frames, chunk=8)   # Annex-B bytes, one per AU
     enc.close()
 
-Port of homerhevc_tpu/api.py for the slice this package supports: IDR
-frames through the all-intra wavefront (CU = TU = 32, no split RDO), P
-frames through the fixed-CU device stage, chunked K frames per dispatch with
-the reference planes kept on the device, and host CABAC (this package's
-own libhenc, built with g++ at first use) overlapping device work on the
-next chunk. Every AU equals, byte
+Port of homerhevc_tpu/api.py for the configurations this package supports
+(FASTEST, FASTER and FAST_COMPUTATION at cu_size 32, fixed QP, rd_mode
+FULL): IDR frames through the all-intra wavefront (CU = TU = 32 in FASTEST,
+the split-RDO quadtree with NxN and intra TU split otherwise), P frames
+through the fixed-CU device stage (FASTEST, FASTER) or the inter CU
+quadtree with hierarchical ME, inter TU split and intra-in-P (FAST), chunked
+K frames per dispatch with the reference planes kept on the device, and
+host CABAC (this package's own libhenc, built with g++ at first use)
+overlapping device work on the next chunk. Every AU equals, byte
 for byte, what `homerhevc_tpu.api.HomerEncoder(cfg, backend="jax")` writes.
 Configurations outside the slice raise NotImplementedError naming the
 setting. Nothing of the JAX package is imported: config, tables, entropy
@@ -52,11 +55,8 @@ def _tree_decisions(depth_u, mv_u, nz_u, ctu_log2: int, n_cand: int = 5,
 def check_slice(c: EncoderConfig) -> None:
     """Raise NotImplementedError for any setting outside the ported slice."""
     checks = (
-        (c.performance_mode != PerformanceMode.FASTEST_COMPUTATION,
-         f"performance_mode={c.performance_mode.name}"),
-        (c.me_search_range > p_torch.HIER_THRESHOLD,
-         f"me_search_range={c.me_search_range} (> "
-         f"{p_torch.HIER_THRESHOLD}: hierarchical ME)"),
+        (c.performance_mode == PerformanceMode.FULL_COMPUTATION,
+         f"performance_mode={c.performance_mode.name} (8x8 inter CUs)"),
         (c.cu_size != 32, f"cu_size={c.cu_size}"),
         (c.gop_size >= 2, f"gop_size={c.gop_size} (B frames)"),
         (c.bitrate_mode != BitrateMode.FIXED_QP,
@@ -99,14 +99,26 @@ class HomerEncoder:
         self.fetch_recon = fetch_recon
         self.ctu = c.ctu_size
         self.ctu_log2 = self.ctu.bit_length() - 1
+        # FAST / FASTER: the IDR RD-searches the intra CU quadtree
+        self.intra_split = (c.performance_mode
+                            != PerformanceMode.FASTEST_COMPUTATION)
+        # FAST: P frames RD-search the inter CU quadtree (CTU -> 16);
+        # FASTER / FASTEST: fixed CU = CTU grid
+        self.inter_split = (c.performance_mode
+                            <= PerformanceMode.FAST_COMPUTATION)
         self.pw = c.padded_width
         self.ph = c.padded_height
         self.params = headers.StreamParams(
             width=c.width, height=c.height,
             pad_right=self.pw - c.width, pad_bottom=self.ph - c.height,
-            ctu_log2=self.ctu_log2, min_cu_log2=self.ctu_log2,
+            ctu_log2=self.ctu_log2,
+            min_cu_log2=3 if self.intra_split else self.ctu_log2,
             max_tu_log2=min(5, self.ctu_log2),
-            max_tr_depth_intra=0, max_tr_depth_inter=0,
+            # one residual-quadtree level, RD-searched on the device
+            max_tr_depth_intra=int(self.intra_split
+                                   and c.max_intra_tr_depth >= 1),
+            max_tr_depth_inter=int(self.inter_split
+                                   and c.max_inter_tr_depth >= 1),
             init_qp=c.qp, sign_hiding=c.sign_hiding,
             deblocking_disabled=not c.deblocking, num_ref_frames=1,
             wpp_enabled=False, sao_enabled=c.sample_adaptive_offset,
@@ -191,10 +203,12 @@ class HomerEncoder:
         self._cur_dev = tuple(self._upload(p) for p in (yp, up, vp))
         ydev, udev, vdev = self._cur_dev
         if is_idr:
+            tu_depth = self.params.max_tr_depth_intra
             out = intra_torch.encode_frame_intra(
-                ydev, udev, vdev, B=size, qp=qp, sign_hiding=c.sign_hiding)
+                ydev, udev, vdev, B=size, qp=qp, sign_hiding=c.sign_hiding,
+                split_rdo=self.intra_split, tu_depth=tu_depth)
             wire_h = out["wire"].cpu().numpy()          # one compact fetch
-            (cnt_i, mode_u8, depth_u8, _, _, idx_i,
+            (cnt_i, mode_u8, depth_u8, part_u8, trd_u8, idx_i,
              vals_i) = intra_torch.unpack_intra_wire(wire_h, self.ph, self.pw)
             cap_i = intra_torch.intra_wire_cap(self.ph, self.pw)
             if cnt_i <= cap_i:
@@ -204,18 +218,26 @@ class HomerEncoder:
                 self.chunk_overflows += 1
                 lev = tuple(out[k].cpu().numpy()
                             for k in ("lev_y", "lev_u", "lev_v"))
-            maps = native_backend.maps_from_intra_units(mode_u8, depth_u8,
-                                                        *lev)
+            maps = native_backend.maps_from_intra_units(
+                mode_u8, depth_u8, *lev,
+                part_units=(part_u8.astype(bool) if self.intra_split
+                            else None),
+                tr_depth_units=(trd_u8 if tu_depth else None))
             if c.deblocking:
                 self._ref = p_torch.deblock_intra_device(
                     out["recon_y"], out["recon_u"], out["recon_v"], qp=qp,
-                    depth_units=out["depth_units"])
+                    depth_units=out["depth_units"],
+                    trd_units=(out["trd_units"] if tu_depth else None))
             else:
                 self._ref = (out["recon_y"], out["recon_u"], out["recon_v"])
             sao_info = self._maybe_sao(qp)
             au = assemble.assemble_idr_au_from_maps(
                 self.params, maps, slice_qp=qp, include_parameter_sets=True,
                 sao_info=sao_info)
+        elif self.inter_split:
+            au = self._encode_p_tree(qp)
+            if au is None:               # scene cut: re-encode as IDR
+                return self._encode(yp, up, vp, True, qp)
         else:
             out = p_torch.p_frame_device(
                 ydev, udev, vdev, *self._ref, B=size, qp=qp,
@@ -254,6 +276,68 @@ class HomerEncoder:
         recon = (tuple(p.cpu().numpy() for p in self._ref)
                  if self.fetch_recon else None)
         return au, recon
+
+    def _tree_kwargs(self) -> dict:
+        """Static settings of the tree P stage, per frame and per chunk."""
+        c = self.cfg
+        return dict(ctu=self.ctu, search=c.me_search_range,
+                    me_precision=int(c.motion_estimation_precision),
+                    sign_hiding=c.sign_hiding,
+                    tr_split=self.params.max_tr_depth_inter > 0,
+                    intra_in_p=self.ctu == 32, vis=(c.height, c.width),
+                    kernels=self.kernels)
+
+    def _tree_maps(self, depth_u, mv_u, nz_u, trd_u, intra_u, lev):
+        """Host decisions and syntax maps of one tree P frame from its unit
+        maps (intra units carry the luma mode in the MV's x slot)."""
+        is_intra = intra_u.astype(bool)
+        imode_u = np.where(is_intra, mv_u[..., 0], 1)
+        dec = _tree_decisions(depth_u, mv_u, nz_u, self.ctu_log2, 5,
+                              pred_intra_u=intra_u)
+        # intra-in-P CUs code TU = CU: the inter TU-split flag must not
+        # leak into their transform tree
+        trd_p = np.where(is_intra, 0, trd_u)
+        return native_backend.maps_from_p_units(
+            depth_u, dec, *lev, tr_depth=trd_p, pred_intra=intra_u,
+            intra_mode=imode_u)
+
+    def _encode_p_tree(self, qp):
+        """P frame through the inter CU quadtree device stage. Returns the
+        AU, or None on a detected scene cut (the caller re-encodes as
+        IDR)."""
+        c = self.cfg
+        ctu = self.ctu
+        out = p_torch.p_frame_tree_device(
+            *self._cur_dev, *self._ref, qp=qp, deblock=c.deblocking,
+            **self._tree_kwargs())
+        uh, uw = self.ph // 4, self.pw // 4
+        nu = uh * uw
+        npix = self.ph * self.pw
+        wire = out["wire"].cpu().numpy()                # one fetch
+        meta = np.ascontiguousarray(wire[npix + npix // 2:]).view(np.int32)
+        depth_u, mv_u, nz_u, trd_u, intra_u = (
+            m.reshape(shape) for m, shape in zip(
+                np.split(meta[:6 * nu], np.cumsum([nu, 2 * nu, nu, nu])),
+                ((uh, uw), (uh, uw, 2), (uh, uw), (uh, uw), (uh, uw))))
+        sad = meta[6 * nu:].reshape(self.ph // ctu, self.pw // ctu)
+        if c.reinit_gop_on_scene_change:
+            ms = float(sad.astype(np.int64).mean())
+            if ms / (ctu * ctu) > SCENE_SAD_PER_PIXEL:
+                self._scene_idr = True
+                return None
+        lev = (wire[:npix].reshape(self.ph, self.pw),
+               wire[npix:npix + npix // 4].reshape(self.ph // 2,
+                                                   self.pw // 2),
+               wire[npix + npix // 4:npix + npix // 2].reshape(
+                   self.ph // 2, self.pw // 2))
+        maps = self._tree_maps(depth_u, mv_u, nz_u.astype(bool), trd_u,
+                               intra_u, lev)
+        key = "ref" if c.deblocking else "recon"
+        self._ref = (out[key + "_y"], out[key + "_u"], out[key + "_v"])
+        sao_info = self._maybe_sao(qp, slice_p=True)
+        return assemble.assemble_p_au_from_maps(
+            self.params, maps, poc=self.poc - self.last_idr, slice_qp=qp,
+            sao_info=sao_info)
 
     def _maybe_sao(self, qp, slice_p=False):
         """SAO on the loop-filtered reference: device stats, host numpy
@@ -331,12 +415,9 @@ class HomerEncoder:
                       for k in range(3))
         qps_d = self._upload(np.asarray(qps, np.int32))
         wires, denses, fy, fu, fv = p_chunk.p_chunk_device(
-            ys, us, vs, *self._ref, qps_d, ctu=self.ctu,
-            search=c.me_search_range,
-            me_precision=int(c.motion_estimation_precision),
-            sign_hiding=c.sign_hiding, deblock=c.deblocking,
+            ys, us, vs, *self._ref, qps_d, deblock=c.deblocking,
             sao=c.sample_adaptive_offset, cap=self._chunk_cap,
-            kernels=self.kernels)
+            tree=self.inter_split, **self._tree_kwargs())
         self._ref = (fy, fu, fv)
         host, done = wires, None
         if self._copy_stream is not None:
@@ -399,13 +480,8 @@ class HomerEncoder:
                 nz = (np.any(lev_y.reshape(uh, 4, uw, 4) != 0, axis=(1, 3))
                       | np.any(lev_u.reshape(uh, 2, uw, 2) != 0, axis=(1, 3))
                       | np.any(lev_v.reshape(uh, 2, uw, 2) != 0, axis=(1, 3)))
-            imode_u = np.where(intra_u.astype(bool), mv_u[..., 0], 1)
-            dec = _tree_decisions(depth_u, mv_u, nz, self.ctu_log2, 5,
-                                  pred_intra_u=intra_u)
-            trd_p = np.where(intra_u.astype(bool), 0, trd_u)
-            maps = native_backend.maps_from_p_units(
-                depth_u, dec, lev_y, lev_u, lev_v, tr_depth=trd_p,
-                pred_intra=intra_u, intra_mode=imode_u)
+            maps = self._tree_maps(depth_u, mv_u, nz, trd_u, intra_u,
+                                   (lev_y, lev_u, lev_v))
             sao_info = None
             if c.sample_adaptive_offset:
                 pp = w["sao_pp"]

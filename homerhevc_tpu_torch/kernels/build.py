@@ -79,6 +79,7 @@ class CudaKernel:
         self.argtypes = list(argtypes)
         self.floor_argtypes = list(floor_argtypes)
         self.launches = 0
+        self._lib = None
         self._fn = None
         self._floor = None
         self._err = None
@@ -86,7 +87,7 @@ class CudaKernel:
     def load(self):
         """Build (first use) and bind the launcher; returns it."""
         if self._fn is None:
-            lib = ctypes.CDLL(str(build_library(self.name)))
+            lib = self._lib = ctypes.CDLL(str(build_library(self.name)))
             fn = getattr(lib, f"{self.name}_launch")
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
@@ -107,6 +108,16 @@ class CudaKernel:
     def launch(self, *args) -> None:
         self._check(self.load()(*args))
         self.launches += 1
+
+    def launch_other(self, symbol: str, *args) -> None:
+        """Launch another entry of the library that takes the launcher's
+        arguments (a yardstick for timing; not counted as a launch of the
+        kernel)."""
+        self.load()
+        fn = getattr(self._lib, symbol)
+        fn.argtypes = self.argtypes
+        fn.restype = ctypes.c_int
+        self._check(fn(*args))
 
     def launch_floor(self, *args) -> None:
         """Launch the library's empty kernel of the same grid and CTA size

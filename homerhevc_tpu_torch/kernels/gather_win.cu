@@ -15,10 +15,12 @@
 // system is busy. What it really waits for is one chain of dependent
 // latencies: launch, the block's start (by, bx), the window's samples, the
 // stores. So the design shortens the chain rather than the byte count:
-//  * G is a template parameter for the sizes the P stage uses (41 and 19),
-//    so t / G is a multiply and a shift, the loops unroll and every load of
-//    a thread is in flight before its first store; any other G takes the
-//    generic kernel;
+//  * G is a template parameter for the sizes the P stages use (fixed-CU
+//    path: 41 luma, 19 chroma; quadtree path: also 25 and 11 at CU 16, and
+//    38 and 22 for the refine windows of the hierarchical search), so t / G
+//    is a multiply and a shift, the loops unroll and every load of a thread
+//    is in flight before its first store; any other G takes the generic
+//    kernel;
 //  * one CTA per window and plane, all of them resident at once;
 //  * a thread per sample, G*G/256 samples per thread, 2-byte loads and
 //    stores, neighbouring threads on neighbouring samples.
@@ -101,10 +103,12 @@ __global__ void gather_floor_kernel() {}
 
 }  // namespace
 
-extern "C" int gather_win_launch(const void* p0, const void* p1,
-                                 const void* p2, const void* p3, int nplanes,
-                                 const void* by, const void* bx, void* out,
-                                 int nb, int Hp, int Wp, int G, void* stream) {
+namespace {
+
+// `templated` = false always takes the any-G kernel (a yardstick for timing).
+int launch(const void* p0, const void* p1, const void* p2, const void* p3,
+           int nplanes, const void* by, const void* bx, void* out, int nb,
+           int Hp, int Wp, int G, void* stream, bool templated) {
     if (nplanes < 1 || nplanes > kMaxPlanes || G < 1 || G > Hp || G > Wp)
         return (int)cudaErrorInvalidValue;
     if (nb == 0) return 0;
@@ -114,13 +118,37 @@ extern "C" int gather_win_launch(const void* p0, const void* p1,
            nb, Hp, Wp, G};
     const dim3 grid(nb, nplanes);
     cudaStream_t st = (cudaStream_t)stream;
-    if (G == 41)
-        gather_kernel<41><<<grid, kThreads, 0, st>>>(a);
-    else if (G == 19)
-        gather_kernel<19><<<grid, kThreads, 0, st>>>(a);
-    else
-        gather_generic_kernel<<<grid, kThreads, 0, st>>>(a);
+    switch (templated ? G : 0) {
+#define GATHER_CASE(g) \
+    case g: gather_kernel<g><<<grid, kThreads, 0, st>>>(a); break;
+        GATHER_CASE(41) GATHER_CASE(19)      // CU 32: luma, chroma pair
+        GATHER_CASE(25) GATHER_CASE(11)      // CU 16: luma, chroma pair
+        GATHER_CASE(38) GATHER_CASE(22)      // hierarchical ME refine, 32 / 16
+#undef GATHER_CASE
+    default: gather_generic_kernel<<<grid, kThreads, 0, st>>>(a);
+    }
     return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int gather_win_launch(const void* p0, const void* p1,
+                                 const void* p2, const void* p3, int nplanes,
+                                 const void* by, const void* bx, void* out,
+                                 int nb, int Hp, int Wp, int G, void* stream) {
+    return launch(p0, p1, p2, p3, nplanes, by, bx, out, nb, Hp, Wp, G, stream,
+                  true);
+}
+
+// The any-G kernel at any G, to time beside the template instances.
+extern "C" int gather_win_generic_launch(const void* p0, const void* p1,
+                                         const void* p2, const void* p3,
+                                         int nplanes, const void* by,
+                                         const void* bx, void* out, int nb,
+                                         int Hp, int Wp, int G,
+                                         void* stream) {
+    return launch(p0, p1, p2, p3, nplanes, by, bx, out, nb, Hp, Wp, G, stream,
+                  false);
 }
 
 // An empty kernel with gather_win_launch's grid and CTA size.

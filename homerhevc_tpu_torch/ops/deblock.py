@@ -1,7 +1,7 @@
 """HEVC deblocking filter (spec 8.7.2), whole-frame tensor passes.
 
-Port of homerhevc_tpu/ops/deblock.py (deblock_frame, the intra and the
-fixed-grid inter boundary-strength maps). Vertical edges on the 8-pel grid
+Port of homerhevc_tpu/ops/deblock.py (deblock_frame; the intra, the
+fixed-grid inter and the CU-quadtree inter boundary-strength maps). Vertical edges on the 8-pel grid
 filter as one (segments, rows, edges, 8 columns) batch; horizontal edges run
 the same pass on the transposed, vertically filtered frame. Exact int32.
 """
@@ -169,21 +169,74 @@ def deblock_frame(y, u, v, *, bs_v, bs_h, qp_map, cb_qp_offset=0,
     return y.contiguous(), u.contiguous(), v.contiguous()
 
 
-def intra_bs_from_depth_units(depth_u):
+def _tu_starts(tusz):
+    """Which 4x4 units start a TU of size `tusz` (uh, uw), in x and in y."""
+    uh, uw = tusz.shape
+    dev = tusz.device
+    posx = torch.arange(uw, device=dev, dtype=I32) * 4
+    posy = torch.arange(uh, device=dev, dtype=I32) * 4
+    return ((posx[None, :] & (tusz - 1)) == 0,
+            (posy[:, None] & (tusz - 1)) == 0)
+
+
+def intra_bs_from_depth_units(depth_u, trd_u=None):
     """bs maps for an all-intra frame from the unit-granular CU depth map
-    (relative to 32-containers, TU = CU; intra TU edges on the 8-pel grid
-    get bS 2)."""
+    (relative to 32-containers: TU = 32 >> depth; intra TU edges on the
+    8-pel grid get bS 2). `trd_u` marks CUs whose transform splits one
+    level: their TU edges lie one level finer (a 4x4-TB interior edge falls
+    off the 8-pel grid, so the clamp to 4 is harmless)."""
     uh, uw = depth_u.shape
     dev = depth_u.device
     tusz = 32 >> depth_u.to(I32)
-    posx = torch.arange(uw, device=dev, dtype=I32) * 4
-    posy = torch.arange(uh, device=dev, dtype=I32) * 4
-    startx = (posx[None, :] & (tusz - 1)) == 0
-    starty = (posy[:, None] & (tusz - 1)) == 0
+    if trd_u is not None:
+        tusz = (tusz >> trd_u.to(I32)).clamp(min=4)
+    startx, starty = _tu_starts(tusz)
     bs_v = torch.zeros((uh, uw // 2), dtype=I32, device=dev)
     bs_h = torch.zeros((uh // 2, uw), dtype=I32, device=dev)
     bs_v[:, 1:] = 2 * startx[:, 2::2].to(I32)
     bs_h[1:, :] = 2 * starty[2::2, :].to(I32)
+    return bs_v, bs_h
+
+
+def inter_bs_from_units(depth_u, mv_u, cbf_u, ctu_log2: int, trd_u=None,
+                        intra_u=None):
+    """bs maps for a P frame coded as a variable-depth inter CU quadtree
+    (spec 8.7.2.4 reduced to the one-reference case).
+
+    depth_u (uh, uw) absolute CU depth per 4x4 unit; mv_u (uh, uw, 2)
+    quarter-pel MV per unit; cbf_u (uh, uw) bool luma TB cbf per unit (TB
+    granular where `trd_u` marks a depth-1 residual quadtree). TU = min(CU,
+    32), halved where trd_u is set, and PU == CU, so TU starts cover every
+    CU/PU edge. bS = 1 on an edge when either TB has coefficients or the
+    MVs differ by a luma sample (4 qpel) or more; 2 when either side is
+    intra (`intra_u`)."""
+    uh, uw = depth_u.shape
+    dev = depth_u.device
+    tusz = ((1 << ctu_log2) >> depth_u.to(I32)).clamp(max=32)
+    if trd_u is not None:
+        tusz = torch.where(trd_u.to(torch.bool), tusz >> 1, tusz)
+    startx, starty = _tu_starts(tusz)
+    cbf_u = cbf_u.to(torch.bool)
+    intra = None if intra_u is None else intra_u.to(torch.bool)
+
+    def bs_at(edge, a, b):
+        # a / b: the (mv, cbf, intra) of the units on either side of the edge
+        mvdiff = ((a[0] - b[0]).abs() >= 4).any(dim=-1)
+        bs = (edge & (a[1] | b[1] | mvdiff)).to(I32)
+        if intra is not None:
+            bs = torch.where(edge & (a[2] | b[2]), 2, bs)
+        return bs
+
+    def side(sl):
+        return (mv_u[sl], cbf_u[sl], None if intra is None else intra[sl])
+
+    # vertical edges at luma columns 8, 16, ... = unit columns 2, 4, ...
+    bs_v = torch.zeros((uh, uw // 2), dtype=I32, device=dev)
+    bs_v[:, 1:] = bs_at(startx[:, 2::2], side((slice(None), slice(1, uw - 1, 2))),
+                        side((slice(None), slice(2, uw, 2))))
+    bs_h = torch.zeros((uh // 2, uw), dtype=I32, device=dev)
+    bs_h[1:, :] = bs_at(starty[2::2, :], side((slice(1, uh - 1, 2),)),
+                        side((slice(2, uh, 2),)))
     return bs_v, bs_h
 
 

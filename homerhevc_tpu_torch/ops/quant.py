@@ -57,26 +57,32 @@ def dequantize(level: torch.Tensor, qp, log2_size: int,
 
 
 @functools.lru_cache(maxsize=None)
-def _scan_perm(log2_size: int, scan_idx: int):
-    """(scan, inverse scan) int64 position permutations of one TB."""
-    scan = np.asarray(tables.coeff_scan(log2_size, scan_idx), np.int64)
+def _scan_perm(log2_size: int, scans: tuple):
+    """(scan, inverse scan) int64 position permutations of one TB, one row
+    per scan index of `scans`: (K, n*n) each."""
+    scan = np.stack([np.asarray(tables.coeff_scan(log2_size, s), np.int64)
+                     for s in scans])
     inv = np.zeros_like(scan)
-    inv[scan] = np.arange(scan.size)
+    for k in range(len(scans)):
+        inv[k, scan[k]] = np.arange(scan.shape[1])
     return scan, inv
 
 
 def sign_bit_hiding(levels: torch.Tensor, coeffs: torch.Tensor, qp,
                     log2_size: int, bit_depth: int = 8,
-                    scan_idx: int = 0) -> torch.Tensor:
+                    scan_idx=0) -> torch.Tensor:
     """Batched sign-bit hiding for (..., N, N) blocks, in the TB's scan
     order `scan_idx` (0 diag / 1 hor / 2 ver). Same candidate order (j
     ascending, +1 before -1) and strict-less selection as the reference;
     the layout here is (blocks, groups, 16) with reductions on the last
-    axis."""
+    axis. A tuple of K scan indices gives the K results in one pass,
+    stacked on a new leading axis: (K, ..., N, N)."""
     n = levels.shape[-1]
     assert n.bit_length() - 1 == log2_size
     dev = levels.device
-    scan, inv = (const(a, dev) for a in _scan_perm(log2_size, scan_idx))
+    scans = (scan_idx,) if isinstance(scan_idx, int) else tuple(scan_idx)
+    K = len(scans)
+    scan, inv = (const(a, dev) for a in _scan_perm(log2_size, scans))
 
     tshift = tables.MAX_TR_DYNAMIC_RANGE - bit_depth - log2_size
     lead = levels.shape[:-2]
@@ -87,11 +93,13 @@ def sign_bit_hiding(levels: torch.Tensor, coeffs: torch.Tensor, qp,
         q = torch.broadcast_to(q.reshape(q.shape + (1,) * (len(lead)
                                                            - q.dim())),
                                lead).reshape(L, 1, 1)
+        q = q.repeat_interleave(K, 0)
     qbits = tables.QUANT_SHIFT + q // 6 + tshift
     scale = const(tables.QUANT_SCALES, dev)[q % 6]
 
-    ls = levels.to(I32).reshape(L, n * n)[:, scan].reshape(L, G, 16)
-    cs = coeffs.to(I32).reshape(L, n * n)[:, scan].reshape(L, G, 16)
+    # (L, K, n*n) in scan order -> L*K blocks of G groups
+    ls = levels.to(I32).reshape(L, n * n)[:, scan].reshape(L * K, G, 16)
+    cs = coeffs.to(I32).reshape(L, n * n)[:, scan].reshape(L * K, G, 16)
     mag = ls.abs()
     nz = ls != 0
     idx = torch.arange(16, dtype=I32, device=dev)
@@ -139,5 +147,8 @@ def sign_bit_hiding(levels: torch.Tensor, coeffs: torch.Tensor, qp,
     newval = (s * new_mag_sel).to(I32)
     apply = (need & valid)[..., None] & bj_oh
     out_scan = torch.where(apply, newval[..., None], ls)
-    flat = out_scan.reshape(L, n * n)[:, inv]
-    return flat.reshape(levels.shape).to(I32)
+    flat = torch.gather(out_scan.reshape(L, K, n * n), 2,
+                        inv[None].expand(L, -1, -1)).to(I32)
+    if isinstance(scan_idx, int):
+        return flat.reshape(levels.shape)
+    return flat.permute(1, 0, 2).reshape((K,) + levels.shape)

@@ -1,13 +1,23 @@
-"""All-intra (IDR) frame pipeline, CU = TU = B, no split RDO.
+"""All-intra (IDR) frame pipeline: CU = TU = B with a closed-loop 35-mode
+search, or the two-pass CU quadtree (split RDO) down to 8x8 luma with NxN
+leaves and one level of intra TU split.
 
-Port of the non-split path of homerhevc_tpu/pipeline/intra_jax.py
-(`encode_frame_intra` with split_rdo=False, rd_mode FULL). The reference's
-`lax.fori_loop` over block anti-diagonals (skew 2, the WPP dependency
-pattern) becomes a Python loop; every block on a diagonal is processed in
-one batch, and each luma block evaluates all 35 modes closed-loop as one
-batched tensor op; chroma follows with the luma mode. Predictions come from
-reconstructed neighbours, so levels and recon are what a conformant decoder
-reproduces. Exact int32, equal to the reference output for output.
+Port of homerhevc_tpu/pipeline/intra_jax.py (`encode_frame_intra` at CTU 32,
+rd_mode FULL, with and without `split_rdo`). The reference's `lax.fori_loop`
+over block anti-diagonals (skew 2, the WPP dependency pattern) becomes a
+Python loop; every block on a diagonal is processed in one batch.
+
+  * Without split RDO each luma block evaluates all 35 modes closed-loop as
+    one batched tensor op; chroma follows with the luma mode.
+  * With split RDO, pass A (`_open_loop_maps`) decides modes, CU depths, NxN
+    and TU splits for the whole frame open-loop (references from the
+    original plane, one dense batch per block size), and pass B walks the
+    decided quadtree of every block on the diagonal closed-loop
+    (`_follow_unit`).
+
+Predictions of the coded pass come from reconstructed neighbours, so levels
+and recon are what a conformant decoder reproduces. Exact int32, equal to
+the reference output for output.
 """
 
 from __future__ import annotations
@@ -21,7 +31,7 @@ from ..ops import intra as intra_ops
 from ..ops import quant as quant_ops
 from ..ops import transforms as tx_ops
 from .p_chunk import compact, to4
-from .p_torch import _qp_tensor, to_plane
+from .p_torch import _qp_tensor, _upu, to_plane
 
 
 def _code_blocks(orig, preds, modes, *, size, c_idx, qp, sign_hiding):
@@ -36,8 +46,8 @@ def _code_blocks(orig, preds, modes, *, size, c_idx, qp, sign_hiding):
     if sign_hiding:
         if log2 == 2 or (log2 == 3 and c_idx == 0):
             # mode-dependent scan (7.4.9.11): SBH groups in the TB's scan
-            lv_d, lv_h, lv_v = (quant_ops.sign_bit_hiding(
-                levels, coeff, qp, log2, scan_idx=s) for s in (0, 1, 2))
+            lv_d, lv_h, lv_v = quant_ops.sign_bit_hiding(
+                levels, coeff, qp, log2, scan_idx=(0, 1, 2))
             ver = ((modes >= 6) & (modes <= 14))[..., None, None]
             hor = ((modes >= 22) & (modes <= 30))[..., None, None]
             levels = torch.where(ver, lv_v, torch.where(hor, lv_h, lv_d))
@@ -79,6 +89,288 @@ def encode_block_one_mode(orig, top, left, corner, has_left, has_top, m, *,
     levels, recon = _code_blocks(orig, pred[:, None], m[:, None], size=size,
                                  c_idx=c_idx, qp=qp, sign_hiding=sign_hiding)
     return levels[:, 0], recon[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# pass A: open-loop decisions for the whole frame
+# ---------------------------------------------------------------------------
+
+def _sum4(a: torch.Tensor) -> torch.Tensor:
+    """2x2 sum-pool of a (py, px[, M]) grid over its first two axes."""
+    py, px = a.shape[:2]
+    return a.reshape((py // 2, 2, px // 2, 2) + a.shape[2:]).sum(dim=(1, 3))
+
+
+# elements of one open-loop battery batch (blocks x 35 modes x samples):
+# bounds the live set of the float64 transform temporaries
+_BATTERY_ELEMS = 1 << 23
+
+
+def _open_loop_maps(y_pad, *, B: int, qp, lam_fx, strong_smoothing: bool,
+                    tu_split: bool = True):
+    """Pass A of the two-pass intra quadtree (rd_mode FULL): batched
+    open-loop 35-mode search and split decision over the whole frame, one
+    dense pass per block size 4, 8, 16, 32.
+
+    References come from the ORIGINAL plane, so every block of a size is
+    independent. A CU may keep its one mode and split the transform into
+    four half-size TBs (`tu_split`): the cost of that is the sum of its
+    four children's batteries at the same mode. An 8x8 leaf may instead be
+    coded NxN (four 4x4 PUs with their own modes). Every pick is a first
+    minimum and every comparison a strict less-than, as in the reference.
+    Returns (mode_u, depth_u, part_u, trd_u) unit maps (H/4, W/4); depth 0
+    is a CU of size B."""
+    if B != 32:
+        raise NotImplementedError(f"split-RDO intra at B={B} (only 32 is "
+                                  "ported)")
+    H, W = y_pad.shape
+    dev = y_pad.device
+    orig = y_pad.to(I32)
+    ov = ((lam_fx >> 4) * 14) >> 4
+    best = {}
+    for S in (4, 8, 16, 32):
+        nby, nbx = H // S, W // S
+        ar = torch.arange(2 * S, device=dev)
+        rr = torch.arange(nby, device=dev)
+        cc = torch.arange(nbx, device=dev)
+        ty = (rr * S - 1).clamp(min=0)
+        lx = (cc * S - 1).clamp(min=0)
+        blocks = orig.reshape(nby, S, nbx, S).permute(0, 2, 1, 3)
+        top = orig[ty[:, None, None],
+                   (cc[None, :, None] * S + ar).clamp(0, W - 1)]
+        left = orig[(rr[:, None, None] * S + ar).clamp(0, H - 1),
+                    lx[None, :, None]]
+        corner = orig[ty[:, None], lx[None]]
+        hl = (cc[None] > 0).expand(nby, nbx)
+        ht = (rr[:, None] > 0).expand(nby, nbx)
+        flat = (blocks.reshape(-1, S, S), top.reshape(-1, 2 * S),
+                left.reshape(-1, 2 * S), corner.reshape(-1), hl.reshape(-1),
+                ht.reshape(-1))
+        step = max(1, _BATTERY_ELEMS // (35 * S * S))
+        costs = []
+        for i in range(0, nby * nbx, step):
+            _, _, cost = encode_block_all_modes(
+                *(t[i:i + step] for t in flat), size=S, c_idx=0, qp=qp,
+                lam_fx=lam_fx, strong_smoothing=strong_smoothing and S == 32,
+                sign_hiding=False)
+            costs.append(cost.to(I32))
+        costv = torch.cat(costs).reshape(nby, nbx, 35)
+        best[S] = (first_argmin(costv, 2).to(I32),
+                   costv.min(dim=2).values, costv)
+
+    tsov = ((lam_fx >> 4) * 8) >> 4     # split flag + extra cbf bins proxy
+
+    def tu_opt(vchild):
+        """Best same-mode TU-split cost per parent: (cost, mode)."""
+        s = _sum4(vchild)
+        return s.min(dim=2).values + tsov, first_argmin(s, 2).to(I32)
+
+    m4, c4, v4 = best[4]
+    m8, c8, v8 = best[8]
+    m16, c16, v16 = best[16]
+    m32, c32, _ = best[32]
+
+    def with_tu_split(c, m, vchild):
+        if not tu_split:
+            return c, m, torch.zeros_like(c, dtype=torch.bool)
+        tsc, tsm = tu_opt(vchild)
+        trd = tsc < c
+        return torch.where(trd, tsc, c), torch.where(trd, tsm, m), trd
+
+    c8, m8, trd8 = with_tu_split(c8, m8, v4)      # 8x8 -> four DST 4x4 TBs
+    c16, m16, trd16 = with_tu_split(c16, m16, v8)
+    c32, m32, trd32 = with_tu_split(c32, m32, v16)
+    # NxN at the 8x8 leaf: four 4x4 PUs (part bin + 3 more mode signals)
+    c4s = _sum4(c4) + (((lam_fx >> 4) * 20) >> 4)
+    part8 = c4s < c8
+    c8e = torch.where(part8, c4s, c8)
+    c8s = _sum4(c8e) + ov
+    split16 = c8s < c16
+    c16e = torch.where(split16, c8s, c16)
+    c16s = _sum4(c16e) + ov
+    split32 = c16s < c32
+    mm32, mm16 = _upu(split32, 32), _upu(split16, 16)
+    depth_u = torch.where(~mm32, 0, torch.where(~mm16, 1, 2))
+    mode_u = torch.where(~mm32, _upu(m32, 32),
+                         torch.where(~mm16, _upu(m16, 16), _upu(m8, 8)))
+    part_u = mm32 & mm16 & _upu(part8, 8)
+    trd_u = torch.where(~mm32, _upu(trd32, 32),
+                        torch.where(~mm16, _upu(trd16, 16),
+                                    _upu(trd8 & ~part8, 8)))
+    mode_u = torch.where(part_u, m4, mode_u)            # per-4x4-PU modes
+    return mode_u.to(I32), depth_u.to(I32), part_u, trd_u.to(I32)
+
+
+# ---------------------------------------------------------------------------
+# pass B: the decided quadtree, closed-loop, batched over the lanes of a
+# diagonal
+# ---------------------------------------------------------------------------
+
+# z-order child offsets within a split CU: (cx_half, cy_half)
+_Z_CHILDREN = ((0, 0), (1, 0), (0, 1), (1, 1))
+
+
+def _take(vec, idx):
+    """vec[l, idx[l, k]] with idx clamped to the vector (the reference's
+    out-of-range reads clamp); vec (L, n), idx (L, k) or (k,)."""
+    idx = idx.clamp(0, vec.shape[1] - 1)
+    if idx.dim() == 1:
+        return vec[:, idx]
+    return torch.gather(vec, 1, idx)
+
+
+def _col(x0):
+    """A per-lane start as a column, a static start as it is."""
+    return x0[:, None] if isinstance(x0, torch.Tensor) else x0
+
+
+def _child_refs(trow, lcol, corner_p, rec, cx, cy, n, has_left, has_top, x0,
+                W):
+    """Reference samples of a child block of size n at (cx, cy) inside its
+    parent, for every lane.
+
+    trow (L, w): the row above the parent (w = the plane's width for a row
+    of the CTU row above, the grandparent's size for a row inside it); lcol
+    (L, p): the column left of the parent; rec (L, P, P): the parent's
+    partly filled reconstruction. Regions that later z-order siblings cover
+    are read through clipped gathers, which replicate the last available
+    sample: the spec 8.4.4.2.2 substitution result."""
+    dev = rec.device
+    L = rec.shape[0]
+    ar = torch.arange(2 * n, device=dev)
+    yes = torch.ones((L,), dtype=torch.bool, device=dev)
+    if cy == 0:
+        top = _take(trow, (_col(x0) + cx + ar).clamp(0, W - 1))
+        h_top = has_top
+    else:
+        top = rec[:, cy - 1, (cx + ar).clamp(0, rec.shape[2] - 1)]
+        h_top = yes
+    if cx == 0:
+        left = _take(lcol, cy + ar)
+        h_left = has_left
+    else:
+        left = rec[:, (cy + ar).clamp(0, cy + n - 1), cx - 1]
+        h_left = yes
+    if cx == 0 and cy == 0:
+        corner = corner_p
+    elif cy == 0 and isinstance(x0, torch.Tensor):
+        corner = _take(trow, (x0[:, None] + cx - 1).clamp(0, W - 1))[:, 0]
+    elif cy == 0:
+        corner = trow[:, min(max(x0 + cx - 1, 0), W - 1, trow.shape[1] - 1)]
+    elif cx == 0:
+        corner = lcol[:, cy - 1]
+    else:
+        corner = rec[:, cy - 1, cx - 1]
+    return top, left, corner, h_left, h_top
+
+
+def _child_aux(trow, lcol, rec, cx, cy, h, x0, n_parent):
+    """(trow, lcol, x0) reference material for a child's own descendants
+    (the band clip replicates rows that belong to later z-order siblings)."""
+    if cy == 0:
+        trow_c, x0_c = trow, x0 + cx
+    else:
+        trow_c, x0_c = rec[:, cy - 1], cx
+    ar = torch.arange(n_parent, device=rec.device)
+    if cx == 0:
+        lcol_c = _take(lcol, cy + ar)
+    else:
+        lcol_c = rec[:, (cy + ar).clamp(0, cy + h - 1), cx - 1]
+    return trow_c, lcol_c, x0_c
+
+
+class _Followed:
+    """The decided quadtree of the lanes of one diagonal for one component:
+    unit maps (L, n, n) on the device, and the depth and NxN maps on the
+    host as well, which say where no lane has anything to code."""
+
+    def __init__(self, mode, depth, nxn, depth_h, nxn_h):
+        self.mode, self.depth, self.nxn = mode, depth, nxn
+        self.depth_h, self.nxn_h = depth_h, nxn_h
+
+
+def _follow_unit(o, refs, aux, tree: _Followed, uy: int, ux: int, act, *,
+                 size: int, depth: int, min_size: int, c_idx: int, qp,
+                 sign_hiding: bool, strong_smoothing: bool, W: int):
+    """One node of the decided quadtree, for every lane at once: (levels,
+    recon) (L, size, size).
+
+    A lane codes the node whole where its map depth equals `depth` and
+    descends where it is deeper; an 8x8 luma leaf marked NxN codes four
+    z-order 4x4 PUs (DST) with their own modes. The reference computes both
+    branches and selects; each branch is a function of the node's inputs
+    alone, so a branch that no lane selects (`act`: the lanes that reach
+    this node, known on the host) is not computed at all, and the result is
+    the same. Lanes outside `act` hold arbitrary values that no caller
+    selects."""
+    top, left, corner, hl, ht = refs
+    trow, lcol, x0 = aux
+    hd = tree.depth_h[:, uy, ux]
+    leaf_h = act & (hd <= depth) if size > min_size else act
+    split_h = act & ~leaf_h
+    lev = rec = None
+    if leaf_h.any():
+        lev, rec = encode_block_one_mode(
+            o, top, left, corner, hl, ht, tree.mode[:, uy, ux], size=size,
+            c_idx=c_idx, qp=qp,
+            strong_smoothing=strong_smoothing and size == 32,
+            sign_hiding=sign_hiding)
+        if c_idx == 0 and size == 8 and tree.nxn is not None \
+                and (leaf_h & tree.nxn_h[:, uy, ux]).any():
+            lev_n = torch.zeros_like(lev)
+            rec_n = torch.zeros_like(rec)
+            for hx, hy in _Z_CHILDREN:
+                cx, cy = hx * 4, hy * 4
+                t_c, l_c, co_c, hl_c, ht_c = _child_refs(
+                    trow, lcol, corner, rec_n, cx, cy, 4, hl, ht, x0, W)
+                lv_c, rc_c = encode_block_one_mode(
+                    o[:, cy:cy + 4, cx:cx + 4], t_c, l_c, co_c, hl_c, ht_c,
+                    tree.mode[:, uy + hy, ux + hx], size=4, c_idx=0, qp=qp,
+                    strong_smoothing=False, sign_hiding=sign_hiding)
+                lev_n[:, cy:cy + 4, cx:cx + 4] = lv_c
+                rec_n[:, cy:cy + 4, cx:cx + 4] = rc_c
+            part = tree.nxn[:, uy, ux][:, None, None]
+            lev = torch.where(part, lev_n, lev)
+            rec = torch.where(part, rec_n, rec)
+    if not split_h.any():
+        return lev, rec
+
+    h = size // 2
+    lev_s = torch.zeros_like(o)
+    rec_s = torch.zeros_like(o)
+    for hx, hy in _Z_CHILDREN:
+        cx, cy = hx * h, hy * h
+        refs_c = _child_refs(trow, lcol, corner, rec_s, cx, cy, h, hl, ht,
+                             x0, W)
+        aux_c = _child_aux(trow, lcol, rec_s, cx, cy, h, x0, size)
+        lv_c, rc_c = _follow_unit(
+            o[:, cy:cy + h, cx:cx + h], refs_c, aux_c, tree, uy + cy // 4,
+            ux + cx // 4, split_h, size=h, depth=depth + 1,
+            min_size=min_size, c_idx=c_idx, qp=qp, sign_hiding=sign_hiding,
+            strong_smoothing=strong_smoothing, W=W)
+        lev_s[:, cy:cy + h, cx:cx + h] = lv_c
+        rec_s[:, cy:cy + h, cx:cx + h] = rc_c
+    if lev is None:
+        return lev_s, rec_s
+    split = (tree.depth[:, uy, ux] > depth)[:, None, None]
+    return torch.where(split, lev_s, lev), torch.where(split, rec_s, rec)
+
+
+def _effective_tree(depth_u, part_u, trd_u, tu_split: bool):
+    """The quadtree pass B follows, with the TU splits folded in.
+
+    A leaf CU whose transform splits one level while keeping its one mode
+    re-predicts each half-size TB from in-CU reconstruction, which is the
+    same computation as a CU split whose children inherit the mode (the
+    mode map is uniform over such a CU already), so it is one more level of
+    depth; an 8x8 leaf with a TU split codes four 4x4 TBs like NxN, with
+    its one mode. The reference rewrites its followed maps node by node to
+    the same effect."""
+    if not tu_split:
+        return depth_u, part_u
+    trd = trd_u > 0
+    return (depth_u + (trd & (depth_u < 2)).to(I32),
+            part_u | (trd & (depth_u == 2)))
 
 
 def intra_wire_cap(H: int, W: int) -> int:
@@ -140,19 +432,25 @@ def _refs_for(bot, right, rs, x0, n: int, w: int):
 
 def encode_frame_intra(y_pad, u_pad, v_pad, *, B: int, qp,
                        strong_smoothing: bool = True,
-                       sign_hiding: bool = False):
-    """Encode one padded frame all-intra with CU = TU = B (the
-    FASTEST_COMPUTATION IDR: no split RDO, rd_mode FULL). Returns the
-    reference's output dict: modes, unit maps, block levels, uint8 recon
-    planes and the compact wire."""
+                       sign_hiding: bool = False, split_rdo: bool = False,
+                       tu_depth: int = 0):
+    """Encode one padded frame all-intra (rd_mode FULL).
+
+    Without `split_rdo`: CU = TU = B, closed-loop 35-mode search per block
+    (the FASTEST_COMPUTATION IDR). With it: the CU quadtree down to 8x8 luma
+    (4x4 chroma) decided open-loop by pass A and applied closed-loop here,
+    with NxN leaves and, for `tu_depth` >= 1, one level of TU split.
+    Returns the reference's output dict: modes, unit maps, block levels,
+    uint8 recon planes and the compact wire."""
     H, W = y_pad.shape
     dev = y_pad.device
     nby, nbx = H // B, W // B
     B2 = B // 2
+    Bu = B // 4
     qp = _qp_tensor(qp, dev)
     qp_c = tables.chroma_qp_t(qp)
     lam_t = const(tables.LAMBDA_FX, dev)
-    lam, lam_c = lam_t[qp], lam_t[qp_c]
+    lam = lam_t[qp]
 
     def blocks(p, s):
         return (p.to(I32).reshape(nby, s, nbx, s).permute(0, 2, 1, 3))
@@ -170,6 +468,23 @@ def encode_frame_intra(y_pad, u_pad, v_pad, *, B: int, qp,
            "v": z(nby, nbx, B2, B2)}
     rec = {k: torch.zeros_like(t) for k, t in lev.items()}
 
+    tu_on = bool(tu_depth) and split_rdo
+    if split_rdo:
+        mode_units, depth_units, part_units, trd_units = _open_loop_maps(
+            y_pad, B=B, qp=qp, lam_fx=lam, strong_smoothing=strong_smoothing,
+            tu_split=tu_on)
+        eff_depth, eff_nxn = _effective_tree(depth_units, part_units,
+                                             trd_units, tu_on)
+
+        def per_block(m):                    # (H/4, W/4) -> (nby, nbx, Bu, Bu)
+            return m.reshape(nby, Bu, nbx, Bu).permute(0, 2, 1, 3)
+
+        mode_blk, depth_blk, nxn_blk = (per_block(m) for m in
+                                        (mode_units, eff_depth, eff_nxn))
+        # the one host copy of the decided tree: which nodes any lane codes
+        depth_host = depth_blk.cpu().numpy()
+        nxn_host = nxn_blk.cpu().numpy()
+
     for d in range(nbx + 2 * (nby - 1)):
         # lanes: block rows r with 0 <= c = d - 2r < nbx
         r_lo = max(0, (d - nbx + 2) // 2)
@@ -178,27 +493,60 @@ def encode_frame_intra(y_pad, u_pad, v_pad, *, B: int, qp,
         cs = d - 2 * rs
         has_top = rs > 0
         has_left = cs > 0
-
+        nl = r_hi - r_lo + 1
         x0 = cs * B
-        top, left, corner = _refs_for(bot["y"], right["y"], rs, x0, B, W)
-        lv35, rc35, cost = encode_block_all_modes(
-            orig_y[rs, cs], top, left, corner, has_left, has_top, size=B,
-            c_idx=0, qp=qp, lam_fx=lam, strong_smoothing=strong_smoothing,
-            sign_hiding=sign_hiding)
-        mi = first_argmin(cost, 1)
-        lanes = torch.arange(rs.shape[0], device=dev)
-        out = {"y": (lv35[lanes, mi], rc35[lanes, mi])}
-
         cx0 = cs * B2
-        for key, plane_o, c_idx in (("u", orig_u, 1), ("v", orig_v, 2)):
-            t, lft, co = _refs_for(bot[key], right[key], rs, cx0, B2,
-                                   W // 2)
-            out[key] = encode_block_one_mode(
-                plane_o[rs, cs], t, lft, co, has_left, has_top, mi, size=B2,
-                c_idx=c_idx, qp=qp_c, strong_smoothing=False,
-                sign_hiding=sign_hiding)
+        top, left, corner = _refs_for(bot["y"], right["y"], rs, x0, B, W)
 
-        mode_b[rs, cs] = mi.to(I32)
+        if split_rdo:
+            rs_h = np.arange(r_lo, r_hi + 1)
+            cs_h = d - 2 * rs_h
+            rm1 = (rs - 1).clamp(min=0)
+            act = np.ones((nl,), bool)
+            tree = _Followed(mode_blk[rs, cs], depth_blk[rs, cs],
+                             nxn_blk[rs, cs], depth_host[rs_h, cs_h],
+                             nxn_host[rs_h, cs_h])
+            out = {"y": _follow_unit(
+                orig_y[rs, cs], (top, left, corner, has_left, has_top),
+                (bot["y"][rm1], right["y"][rs], x0), tree, 0, 0, act, size=B,
+                depth=0, min_size=8, c_idx=0, qp=qp, sign_hiding=sign_hiding,
+                strong_smoothing=strong_smoothing, W=W)}
+            # chroma follows the luma quadtree with the luma modes, U and V
+            # as one batch of 2 * nl lanes
+            refs_c = [_refs_for(bot[k], right[k], rs, cx0, B2, W // 2)
+                      for k in ("u", "v")]
+            t, lft, co = (torch.cat([a, b]) for a, b in zip(*refs_c))
+            two = lambda a: torch.cat([a, a])
+            tree_c = _Followed(
+                two(tree.mode[:, ::2, ::2]), two(tree.depth[:, ::2, ::2]),
+                None, np.concatenate([tree.depth_h[:, ::2, ::2]] * 2), None)
+            lv_c, rc_c = _follow_unit(
+                torch.cat([orig_u[rs, cs], orig_v[rs, cs]]),
+                (t, lft, co, two(has_left), two(has_top)),
+                (torch.cat([bot["u"][rm1], bot["v"][rm1]]),
+                 torch.cat([right["u"][rs], right["v"][rs]]), two(cx0)),
+                tree_c, 0, 0, np.ones((2 * nl,), bool), size=B2, depth=0,
+                min_size=4, c_idx=1, qp=qp_c, sign_hiding=sign_hiding,
+                strong_smoothing=False, W=W // 2)
+            out["u"] = (lv_c[:nl], rc_c[:nl])
+            out["v"] = (lv_c[nl:], rc_c[nl:])
+        else:
+            lv35, rc35, cost = encode_block_all_modes(
+                orig_y[rs, cs], top, left, corner, has_left, has_top, size=B,
+                c_idx=0, qp=qp, lam_fx=lam,
+                strong_smoothing=strong_smoothing, sign_hiding=sign_hiding)
+            mi = first_argmin(cost, 1)
+            lanes = torch.arange(nl, device=dev)
+            out = {"y": (lv35[lanes, mi], rc35[lanes, mi])}
+            for key, plane_o, c_idx in (("u", orig_u, 1), ("v", orig_v, 2)):
+                t, lft, co = _refs_for(bot[key], right[key], rs, cx0, B2,
+                                       W // 2)
+                out[key] = encode_block_one_mode(
+                    plane_o[rs, cs], t, lft, co, has_left, has_top, mi,
+                    size=B2, c_idx=c_idx, qp=qp_c, strong_smoothing=False,
+                    sign_hiding=sign_hiding)
+            mode_b[rs, cs] = mi.to(I32)
+
         for key, n, xs in (("y", B, x0), ("u", B2, cx0), ("v", B2, cx0)):
             lv, rc = out[key]
             lev[key][rs, cs] = lv
@@ -207,14 +555,17 @@ def encode_frame_intra(y_pad, u_pad, v_pad, *, B: int, qp,
             bot[key][rs[:, None], cols] = rc[:, -1, :]
             right[key][rs] = rc[:, :, -1]
 
-    un = B // 4
-    mode_units = mode_b.repeat_interleave(un, 0).repeat_interleave(un, 1)
-    zeros_u = torch.zeros_like(mode_units)
+    if split_rdo:
+        mode_b = mode_units[::Bu, ::Bu]
+        part_units = part_units.to(I32)
+    else:
+        mode_units = _upu(mode_b, B)
+        depth_units = part_units = trd_units = torch.zeros_like(mode_units)
     u8 = torch.uint8
     out = dict(
         modes=mode_b,
-        mode_units=mode_units, depth_units=zeros_u, part_units=zeros_u,
-        trd_units=zeros_u,
+        mode_units=mode_units, depth_units=depth_units,
+        part_units=part_units, trd_units=trd_units,
         lev_y=lev["y"], lev_u=lev["u"], lev_v=lev["v"],
         recon_y=to_plane(rec["y"]).to(u8),
         recon_u=to_plane(rec["u"]).to(u8),
@@ -222,5 +573,5 @@ def encode_frame_intra(y_pad, u_pad, v_pad, *, B: int, qp,
     )
     out["wire"] = pack_intra_wire(
         to_plane(lev["y"]), to_plane(lev["u"]), to_plane(lev["v"]),
-        mode_units, zeros_u, zeros_u, zeros_u)
+        mode_units, depth_units, part_units, trd_units)
     return out

@@ -1,13 +1,15 @@
 """Chunked multi-frame P pipeline: K frames per dispatch, references kept
 on the device.
 
-Port of homerhevc_tpu/pipeline/p_chunk.py with `tree=False` (the fixed-CU
-path). The reference's `lax.scan` over K frames becomes a Python loop of
+Port of homerhevc_tpu/pipeline/p_chunk.py for the fixed-CU path
+(`tree=False`) and the CU-quadtree path (`tree=True`, CTU 32, fixed QP).
+The reference's `lax.scan` over K frames becomes a Python loop of
 batched tensor ops whose carry — the deblocked, SAO-filtered reference
 planes — never leaves the device. Each frame yields one compacted int32
 wire row, word-identical to the reference's, so the host unpack below (a
 copy of the reference's numpy helpers, whose module imports jax) reads it
-unchanged: per-16-block MVs, per-CTU SAD (scene-cut signal), packed SAO
+unchanged: per-16-block decisions (CU depth, TU split, intra flag, MV or
+intra mode), per-CTU SAD (scene-cut signal), packed SAO
 parameters, and the nonzero 4x4 coefficient sub-blocks as int8 with an
 int16 escape list, under a fixed capacity.
 
@@ -77,8 +79,10 @@ def _sao_device(cur, rec, ctu: int, qp, qp_c):
     return pp, filt
 
 
-def _frame_wire(mvs, sad, pp, lev_planes, ctu: int, cap: int):
-    """One frame's compacted wire row (int32) for the fixed-CU path."""
+def _frame_wire(depth_u, trd_u, intra_u, mv_u, sad, pp, lev_planes,
+                cap: int):
+    """One frame's compacted wire row (int32) from the 4x4-unit decision
+    maps (read at stride 4: one word per 16x16 block)."""
     L4 = sum(p.numel() for p in lev_planes) // 16
     lv4 = torch.cat([to4(p) for p in lev_planes])                # (L4, 16)
     nzm = (lv4 != 0).any(dim=1)
@@ -94,10 +98,12 @@ def _frame_wire(mvs, sad, pp, lev_planes, ctu: int, cap: int):
     evals = vals[erow.clamp(max=cap - 1)]
     evals = torch.where((erow < cap)[:, None], evals, 0).to(torch.int16)
     evals32 = evals.view(torch.int32)                             # (cap2, 8)
-    # 16-granular decision grid: depth / TU split / intra are 0 on this path
-    rep = ctu // 16
-    mv16 = mvs.repeat_interleave(rep, 0).repeat_interleave(rep, 1)
-    dec16 = ((mv16[..., 0] + 2048) << 4) | ((mv16[..., 1] + 2048) << 16)
+    # 16-granular decision grid: bits 0-1 depth, 2 TU split, 3 intra, then
+    # the two MV components (the intra mode rides the x slot)
+    mv16 = mv_u[::4, ::4].to(I32)
+    dec16 = ((depth_u[::4, ::4] & 3) | ((trd_u[::4, ::4] & 1) << 2)
+             | ((intra_u[::4, ::4] & 1) << 3)
+             | ((mv16[..., 0] + 2048) << 4) | ((mv16[..., 1] + 2048) << 16))
     return torch.cat([
         cnt.reshape(1), cnt2.reshape(1), dec16.reshape(-1).to(I32),
         sad.reshape(-1).to(I32), pp.reshape(-1).to(I32), idx.to(I32),
@@ -106,13 +112,19 @@ def _frame_wire(mvs, sad, pp, lev_planes, ctu: int, cap: int):
 
 def p_chunk_device(ys, us, vs, ref_y, ref_u, ref_v, qps, *, ctu: int,
                    search: int, me_precision: int, sign_hiding: bool,
-                   deblock: bool, sao: bool, cap: int, kernels: bool = True):
+                   deblock: bool, sao: bool, cap: int, tree: bool = False,
+                   tr_split: bool = False, intra_in_p: bool = False,
+                   vis=None, kernels: bool = True):
     """Encode K consecutive P frames on the device.
 
     ys (K, H, W) uint8 etc., ref_* uint8 planes, qps (K,) int32 on the
-    device. Returns (wires (K, L) int32, denses (K, D) int16 dense level
-    planes for the capacity-overflow fallback, final reference planes)."""
+    device. `tree` selects the CU-quadtree stage (with `tr_split`,
+    `intra_in_p` and the visible size `vis`) over the fixed-CU one. Returns
+    (wires (K, L) int32, denses (K, D) int16 dense level planes for the
+    capacity-overflow fallback, final reference planes)."""
     K, H, W = ys.shape
+    dev = ys.device
+    uh, uw = H // 4, W // 4
     ry8, ru8, rv8 = ref_y, ref_u, ref_v
     wires, denses = [], []
     for k in range(K):
@@ -120,25 +132,41 @@ def p_chunk_device(ys, us, vs, ref_y, ref_u, ref_v, qps, *, ctu: int,
         ryp = edge_pad(ry8.to(torch.int16), PAD)
         rup = edge_pad(ru8.to(torch.int16), PAD // 2)
         rvp = edge_pad(rv8.to(torch.int16), PAD // 2)
-        res = p_torch._p_stage(y, u, v, ryp, rup, rvp, B=ctu, qp=qp,
-                               search=search, me_precision=me_precision,
-                               sign_hiding=sign_hiding, kernels=kernels)
-        lev = tuple(p_torch.to_plane(res[key])
-                    for key in ("lev_y", "lev_u", "lev_v"))
+        if tree:
+            res = p_torch._p_stage_tree(
+                y, u, v, ryp, rup, rvp, ctu=ctu, qp=qp, search=search,
+                me_precision=me_precision, sign_hiding=sign_hiding,
+                tr_split=tr_split, intra_in_p=intra_in_p, vis=vis,
+                kernels=kernels)
+            depth_u, trd_u = res["depth_u"], res["trd_u"]
+            intra_u, mv_u = res["pred_intra_u"], res["mv_u"]
+            lev = (res["lev_y"], res["lev_u"], res["lev_v"])
+        else:
+            res = p_torch._p_stage(y, u, v, ryp, rup, rvp, B=ctu, qp=qp,
+                                   search=search, me_precision=me_precision,
+                                   sign_hiding=sign_hiding, kernels=kernels)
+            depth_u = trd_u = intra_u = torch.zeros((uh, uw), dtype=I32,
+                                                    device=dev)
+            mv_u = p_torch._upu(res["mvs"], ctu)
+            lev = tuple(p_torch.to_plane(res[key])
+                        for key in ("lev_y", "lev_u", "lev_v"))
         rec = tuple(res[key].to(I32)
                     for key in ("recon_y", "recon_u", "recon_v"))
-        if deblock:
+        if deblock and tree:
+            rec = p_torch.tree_deblock(rec, res, ctu)
+        elif deblock:
             rec = p_torch.inter_deblock(rec, res["mvs"], res["lev_y"], qp,
                                         ctu)
         if sao:
             qp_c = tables.chroma_qp_t(qp)
+            # the reference filters the uint8 loop-filter output
             pp, rec = _sao_device((y.to(I32), u.to(I32), v.to(I32)), rec,
                                   ctu, qp, qp_c)
         else:
-            pp = torch.zeros((3, H // ctu, W // ctu), dtype=I32,
-                             device=ys.device)
+            pp = torch.zeros((3, H // ctu, W // ctu), dtype=I32, device=dev)
         ry8, ru8, rv8 = (p.to(torch.uint8) for p in rec)
-        wires.append(_frame_wire(res["mvs"], res["sad"], pp, lev, ctu, cap))
+        wires.append(_frame_wire(depth_u, trd_u, intra_u, mv_u, res["sad"],
+                                 pp, lev, cap))
         denses.append(torch.cat([p.to(torch.int16).reshape(-1)
                                  for p in lev]))
     return torch.stack(wires), torch.stack(denses), ry8, ru8, rv8

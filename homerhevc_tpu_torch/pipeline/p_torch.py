@@ -1,15 +1,19 @@
-"""P-frame pipeline, fixed CU = B grid: frame-batched integer ME, quarter-pel
-refinement, merge/skip RD, MC and residual coding.
+"""P-frame pipeline: frame-batched integer ME, quarter-pel refinement,
+merge/skip RD, MC and residual coding, on a fixed CU = B grid or as an inter
+CU quadtree (CTU 32 -> 16) with the inter residual quadtree and the per-CU
+intra fallback.
 
-Port of the non-tree path of homerhevc_tpu/pipeline/p_jax.py (`_p_stage`
-dense branch, `_level_encode` without the TU split or row QPs,
-`_p_stage_tail`, `p_frame_device`, `deblock_intra_device`). Inter
-prediction reads only the previous decoded frame, so every block is
-independent and the whole frame runs as batched tensor ops with the block
-axis first: (nb, ...). Two steps go through hand-written CUDA kernels on
-the card: the integer SAD sweep (ops/me.py) and the per-block window
-gathers (ops/gather.py). All arithmetic is exact int32, equal to the
-reference output for output.
+Port of homerhevc_tpu/pipeline/p_jax.py for CTU 32 and a fixed QP:
+`_p_stage` (dense branch), `_me_hier` (sizes 16 and 32), `_level_encode`
+(S 16 and 32, `vis`, `tr_split`; no row QPs), `_p_stage_tail`,
+`_p_stage_tree`, `p_frame_device`, `p_frame_tree_device`,
+`deblock_intra_device`. Inter prediction reads only the previous decoded
+frame, so every block is independent and the whole frame runs as batched
+tensor ops with the block axis first: (nb, ...). Two steps go through
+hand-written CUDA kernels on the card: the integer SAD sweep of the fixed-CU
+path (ops/me.py) and the per-block window gathers of both paths
+(ops/gather.py). All arithmetic is exact int32, equal to the reference
+output for output.
 """
 
 from __future__ import annotations
@@ -20,25 +24,31 @@ import numpy as np
 import torch
 
 from .. import tables
-from ..device import I32, const, edge_pad
+from ..device import I32, const, edge_pad, first_argmin
 from ..ops import deblock as dbk
 from ..ops import interp
+from ..ops import intra as intra_ops
 from ..ops import quant as quant_ops
 from ..ops import transforms as tx_ops
+from ..ops.blocksum import block_sum
 from ..ops.gather import gather_windows
-from ..ops.me import integer_me
+from ..ops.me import integer_me, sad_grids
 
 # Edge padding of the reference planes: the largest search range of the
 # reference's hierarchical ME (64) + the 8-tap filter support (as
 # homerhevc_tpu/pipeline/p_golden.py).
 PAD = 72
 
-# Search ranges above this take the reference's hierarchical ME, which is
-# not ported; at or below it the dense full-window sweep runs.
+# Search ranges above this take the hierarchical coarse + refine ME
+# (_me_hier, tree path only); at or below it the dense full-window sweep.
 HIER_THRESHOLD = 24
 
 # Merge-signalling bit proxies (merge_flag + unary idx), as the reference.
 MB_LEFT, MB_TOP, MB_ZERO = 3, 4, 5
+_MB_TAB = np.array([0, MB_LEFT, MB_TOP, MB_ZERO], np.int32)
+
+# Luma modes of the intra-in-P battery (planar, DC, angular every 4th).
+INTRA_IN_P_MODES = np.array([0, 1, 2, 6, 10, 14, 18, 22, 26, 30, 34], np.int64)
 
 
 @functools.lru_cache(maxsize=None)
@@ -79,14 +89,18 @@ def _p_stage(y_pad, u_pad, v_pad, ry, ru, rv, *, B: int, qp, search: int,
              kernels: bool = True):
     """Core frame-batched P stage over PAD-pre-padded int16 reference
     planes (dense integer search, the reference's `_p_stage`)."""
-    if search > HIER_THRESHOLD:
-        raise NotImplementedError(
-            f"me_search_range={search} > {HIER_THRESHOLD} (hierarchical ME)")
     dev = y_pad.device
     qp = _qp_tensor(qp, dev)
     qp_c = tables.chroma_qp_t(qp)
     lam = const(tables.LAMBDA_ME_FX_P, dev)[qp]
     cur = y_pad.to(I32)
+    if search > HIER_THRESHOLD:
+        ivy, ivx, best_cost = _me_hier(cur, ry, sizes=(B,), search=search,
+                                       lam=lam, kernels=kernels)[B]
+        return _p_stage_tail(cur, u_pad, v_pad, ry, ru, rv, ivy, ivx,
+                             best_cost, B=B, qp=qp, qp_c=qp_c, lam=lam,
+                             search=search, me_precision=me_precision,
+                             sign_hiding=sign_hiding, kernels=kernels)
     n = 2 * search + 1
     mvcost = (lam * const(_mv_bits_grid(search), dev)) >> 8
     # the kernel takes the uint8 or int16 plane as it is (no conversion
@@ -102,18 +116,23 @@ def _p_stage(y_pad, u_pad, v_pad, ry, ru, rv, *, B: int, qp, search: int,
 
 
 def _level_encode(cur, u_pad, v_pad, ry, ru, rv, ivy, ivx, *, S, qp, qp_c,
-                  lam, search, me_precision, sign_hiding,
-                  kernels: bool = True):
+                  lam, search, me_precision, sign_hiding, tr_split=False,
+                  vis=None, kernels: bool = True):
     """Subpel refinement + merge/skip RD + MC + residual coding for every
-    S-sized block (S <= 32). Returns per-block levels / recon and MVs."""
+    S-sized block (S in {16, 32}). Returns per-block levels / recon and MVs,
+    the integer RD cost of each block as a quadtree node (luma SSD + lambda
+    * (level-bit estimate + MV bits)) and, with `tr_split` at S 32, the
+    per-CU choice `trd` of coding the residual as four half-size TBs.
+    `vis` = (height, width) of the visible picture: no residual is spent
+    on the padding beyond it."""
     H, W = cur.shape
     nby, nbx = H // S, W // S
     nb = nby * nbx
     S2 = S // 2
     G = S + 2                                  # qpel grid spatial extent
     log2 = S.bit_length() - 1
-    if log2 > 5:
-        raise NotImplementedError(f"CU size {S} > 32 (implicit TU split)")
+    if S not in (16, 32):
+        raise NotImplementedError(f"CU size {S} (only 16 and 32 are ported)")
     dev = cur.device
     bits_q = const(_bits_tab(4 * search + 16), dev)
     lam_full_t = const(tables.LAMBDA_FX_P, dev)
@@ -268,39 +287,108 @@ def _level_encode(cur, u_pad, v_pad, ry, ru, rv, ivy, ivx, *, S, qp, qp_c,
     blk_u = _blocks(u_pad.to(I32), S2)
     blk_v = _blocks(v_pad.to(I32), S2)
 
-    # ---- residual coding on (nb, n, n) batches ----
+    # ---- residual coding on (nb, [4,] n, n) batches ----
     def rd_zero(orig, pred, lev, rec, qpq):
-        # skip-vs-code RD: drop the residual when prediction alone costs
-        # less in D + lambda*R
+        # skip-vs-code RD per TB: drop the residual when prediction alone
+        # costs less in D + lambda*R
         lamf = lam_full_t[qpq]
         ssd_c = ((orig - rec) * (orig - rec)).sum(dim=(-1, -2))
         ssd_s = ((orig - pred) * (orig - pred)).sum(dim=(-1, -2))
         bits = torch.clamp(tables.level_bits_est_t(lev), max=16383)
-        keep = (ssd_c + (((lamf >> 4) * bits) >> 4) < ssd_s)[:, None, None]
+        keep = (ssd_c + (((lamf >> 4) * bits) >> 4) < ssd_s)[..., None, None]
         return torch.where(keep, lev, 0), torch.where(keep, rec, pred)
 
-    def code(orig, pred, qpq, lg2):
+    def code_tb(orig, pred, qpq, lg2):
         coeff = tx_ops.forward_transform(orig - pred)
         lev = quant_ops.quantize(coeff, qpq, lg2, is_intra=False)
         if sign_hiding:
             lev = quant_ops.sign_bit_hiding(lev, coeff, qpq, lg2)
         rr = tx_ops.inverse_transform(quant_ops.dequantize(lev, qpq, lg2))
         any_nz = (lev != 0).any(dim=-1).any(dim=-1)
-        rr = torch.where(any_nz[:, None, None], rr, 0)
+        rr = torch.where(any_nz[..., None, None], rr, 0)
         rec = (pred + rr).clamp(0, 255)
         return rd_zero(orig, pred, lev, rec, qpq)
+
+    def code(orig, pred, qpq, lg2, max_tb=5):
+        if lg2 <= max_tb:
+            return code_tb(orig, pred, qpq, lg2)
+        # TU quadtree, one level: four half-size TBs as one (nb, 4, n/2,
+        # n/2) batch; the skip-vs-code RD then acts per TB
+        n = 1 << lg2
+        h2 = n // 2
+
+        def tile(t):
+            return (t.reshape(nb, 2, h2, 2, h2).permute(0, 1, 3, 2, 4)
+                    .reshape(nb, 4, h2, h2))
+
+        def untile(t):
+            return (t.reshape(nb, 2, 2, h2, h2).permute(0, 1, 3, 2, 4)
+                    .reshape(nb, n, n))
+
+        lev, rec = code_tb(tile(orig), tile(pred), qpq, lg2 - 1)
+        return untile(lev), untile(rec)
+
+    if vis is not None and (vis[0] < H or vis[1] < W):
+        # conformance-window padding: rows and columns beyond the visible
+        # picture are cropped by the decoder, so orig := pred there (no
+        # residual bits, and the costs below ignore invisible distortion)
+        def visible(s, vh, vw):
+            ys = torch.arange(s, device=dev, dtype=I32)
+            vmy = (r[:, None] * s + ys[None]) < vh               # (nb, s)
+            vmx = (c[:, None] * s + ys[None]) < vw
+            return vmy[:, :, None] & vmx[:, None, :]
+
+        blk = torch.where(visible(S, vis[0], vis[1]), blk, pred_y)
+        m_c = visible(S2, vis[0] // 2, vis[1] // 2)
+        blk_u = torch.where(m_c, blk_u, pred_u)
+        blk_v = torch.where(m_c, blk_v, pred_v)
 
     lev_y, rec_y = code(blk, pred_y, qp, log2)
     lev_u, rec_u = code(blk_u, pred_u, qp_c, log2 - 1)
     lev_v, rec_v = code(blk_v, pred_v, qp_c, log2 - 1)
+    lamf = lam_full_t[qp]
+    trd = torch.zeros((nb,), dtype=I32, device=dev)
+    if tr_split and S == 32:
+        # inter residual quadtree, depth 1: re-code the CU as four
+        # half-size TBs (chroma follows the tree), then a per-CU RD select
+        def rd_of(lv, rc, orig, extra_bits):
+            b = torch.clamp(tables.level_bits_est_t(lv), max=16383)
+            d = ((orig - rc) * (orig - rc)).sum(dim=(-1, -2))
+            return d + (((lamf >> 4) * (b + extra_bits)) >> 4)
+
+        lev_ys, rec_ys = code(blk, pred_y, qp, log2, max_tb=log2 - 1)
+        lev_us, rec_us = code(blk_u, pred_u, qp_c, log2 - 1, max_tb=log2 - 2)
+        lev_vs, rec_vs = code(blk_v, pred_v, qp_c, log2 - 1, max_tb=log2 - 2)
+        cost_w = (rd_of(lev_y, rec_y, blk, 2) + rd_of(lev_u, rec_u, blk_u, 0)
+                  + rd_of(lev_v, rec_v, blk_v, 0))
+        cost_s = (rd_of(lev_ys, rec_ys, blk, 2)
+                  + rd_of(lev_us, rec_us, blk_u, 0)
+                  + rd_of(lev_vs, rec_vs, blk_v, 0))
+        sel_s = cost_s < cost_w
+        trd = sel_s.to(I32)
+        sb = sel_s[:, None, None]
+        lev_y = torch.where(sb, lev_ys, lev_y)
+        rec_y = torch.where(sb, rec_ys, rec_y)
+        lev_u = torch.where(sb, lev_us, lev_u)
+        rec_u = torch.where(sb, rec_us, rec_u)
+        lev_v = torch.where(sb, lev_vs, lev_v)
+        rec_v = torch.where(sb, rec_vs, rec_v)
+
+    # node RD cost for the quadtree split decision
+    bits_lv = torch.clamp(tables.level_bits_est_t(lev_y), max=16383)
+    mvb = torch.where(sel_k > 0, const(_MB_TAB, dev)[sel_k.to(torch.int64)],
+                      bits_q[mvx.abs()] + bits_q[mvy.abs()])
+    ssd = ((blk - rec_y) * (blk - rec_y)).sum(dim=(-1, -2))
+    cost = ssd + (((lamf >> 4) * (bits_lv + mvb + 6)) >> 4)
 
     out = {k: t.reshape(nby, nbx, S, S)
            for k, t in (("lev_y", lev_y), ("rec_y", rec_y))}
     out.update({k: t.reshape(nby, nbx, S2, S2)
                 for k, t in (("lev_u", lev_u), ("lev_v", lev_v),
                              ("rec_u", rec_u), ("rec_v", rec_v))})
-    out["mvx"] = mvx.reshape(nby, nbx)
-    out["mvy"] = mvy.reshape(nby, nbx)
+    out.update({k: t.reshape(nby, nbx).to(I32)
+                for k, t in (("mvx", mvx), ("mvy", mvy), ("cost", cost),
+                             ("trd", trd))})
     return out
 
 
@@ -332,6 +420,405 @@ def _p_stage_tail(cur, u_pad, v_pad, ry, ru, rv, ivy, ivx, best_cost, *,
         recon_u=to_plane(e["rec_u"]).to(u8),
         recon_v=to_plane(e["rec_v"]).to(u8),
     )
+
+
+@functools.lru_cache(maxsize=None)
+def _mv_bits_grid4(R4: int) -> np.ndarray:
+    """MV bit proxy of every coarse offset (4 * d full-pel), (n4*n4,)
+    dy-major."""
+    bits1 = _bits_tab(16 * R4)[np.abs(16 * np.arange(-R4, R4 + 1))]
+    return (bits1[:, None] + bits1[None, :]).reshape(-1).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _zero_anchor_bits() -> np.ndarray:
+    """MV bit proxy of the 49 zero-anchor offsets (+-3 full-pel), dy-major."""
+    t = _bits_tab(28)
+    return np.array([t[abs(4 * dy)] + t[abs(4 * dx)]
+                     for dy in range(-3, 4) for dx in range(-3, 4)], np.int32)
+
+
+def _pool2(g: torch.Tensor) -> torch.Tensor:
+    """2x2 sum-pool of the last two axes (SAD additivity: a parent block's
+    SAD grid from its four children's)."""
+    return block_sum(g, 2, 2)
+
+
+def _check_hier_sizes(sizes) -> None:
+    if any(s not in (16, 32) for s in sizes):
+        raise NotImplementedError(f"_me_hier sizes {tuple(sizes)} (only 16 "
+                                  "and 32 are ported)")
+
+
+def _me_hier_coarse(cur, ry, *, sizes, search, lam):
+    """Coarse level of the hierarchical ME: {S: (cy, cx, zS)}, the pyramid
+    pick of every S-block in full-pel (flat, raster order) and the 49
+    zero-anchor SAD grids (49, H/S, W/S) pooled to that size.
+
+    A dense sweep of +-search/4 offsets on 4:1 box-summed planes gives
+    per-16 SAD grids; they and the zero-anchor grids are pooled up to each
+    size; the pick is the first minimum with the coarse MV cost, dy-major."""
+    _check_hier_sizes(sizes)
+    dev = cur.device
+    R4 = search // 4
+    n4 = 2 * R4 + 1
+    cur = cur.to(I32)
+    # the coarse sweep is the SAD grid sweep on the pooled planes: 4x4
+    # pooled cells per 16-block, offsets +-R4 inside a pad of PAD / 4
+    gS = sad_grids(block_sum(cur, 4, 4), block_sum(ry, 4, 4), S=4,
+                   search=R4, pad=PAD // 4)         # (n4*n4, H/16, W/16)
+    zS = sad_grids(cur, ry, S=16, search=3, pad=PAD)    # (49, H/16, W/16)
+    mvcost4 = (lam * const(_mv_bits_grid4(R4), dev)) >> 8
+    out = {}
+    S = 16
+    for size in sorted(sizes):
+        while S < size:                                 # pool up to `size`
+            gS, zS = _pool2(gS), _pool2(zS)
+            S *= 2
+        k = first_argmin(gS + mvcost4[:, None, None], 0).to(I32)
+        out[size] = ((4 * (k // n4 - R4)).reshape(-1),
+                     (4 * (k % n4 - R4)).reshape(-1), zS)
+    return out
+
+
+def _me_hier(cur, ry, *, sizes, search, lam, kernels: bool = True):
+    """Hierarchical wide-window integer ME (search > HIER_THRESHOLD), the
+    reference's `_me_hier` for block sizes 16 and 32.
+
+      coarse: `_me_hier_coarse`;
+      refine: full-resolution +-3 around BOTH the zero MV (49 costs from
+              static shifted-plane grids, shared across sizes by pooling)
+              and the coarse pick (one per-block window gather per size).
+              98 ordered candidates, zero anchor first, first minimum.
+
+    Returns {S: (ivy, ivx, icost)} (nby, nbx) int32 with |mv| <= search + 3.
+    """
+    H, W = cur.shape
+    dev = cur.device
+    cur = cur.to(I32)
+    coarse = _me_hier_coarse(cur, ry, sizes=sizes, search=search, lam=lam)
+    zcost_off = (lam * const(_zero_anchor_bits(), dev)) >> 8
+    bits_f = const(_bits_tab(4 * search + 16), dev)
+    cur16 = cur.to(torch.int16)
+    d7 = torch.arange(-3, 4, device=dev, dtype=I32)
+
+    def refine(size, vy, vx, zS):
+        nby, nbx = H // size, W // size
+        nb = nby * nbx
+        bi = torch.arange(nb, device=dev, dtype=I32)
+        r = bi // nbx
+        c = bi % nbx
+        zc = zS.reshape(49, nb) + zcost_off[:, None]
+        blk = _blocks(cur16, size)
+        win = gather_windows(ry, r * size + vy - 3 + PAD,
+                             c * size + vx - 3 + PAD, size + 6,
+                             kernels=kernels)           # (nb, size+6, size+6)
+        # all 49 shifts of the window as a strided view: (nb, 7, 7, s, s);
+        # 8-bit samples, so the int16 differences cannot overflow
+        shifts = win.unfold(1, size, 1).unfold(2, size, 1)
+        sad = ((blk[:, None, None] - shifts).abs()
+               .sum(dim=(-1, -2), dtype=I32))           # (nb, 7, 7)
+        bb = (bits_f[(4 * (vy[:, None] + d7)).abs()][:, :, None]
+              + bits_f[(4 * (vx[:, None] + d7)).abs()][:, None, :])
+        cs = sad + ((lam * bb) >> 8)
+        cost98 = torch.cat([zc, cs.reshape(nb, 49).T])  # zero anchor first
+        j = first_argmin(cost98, 0).to(I32)
+        icost = cost98.min(dim=0).values
+        jj = j % 49
+        dy = jj // 7 - 3
+        dx = jj % 7 - 3
+        is_pyr = j >= 49
+        ivy = torch.where(is_pyr, vy + dy, dy).reshape(nby, nbx)
+        ivx = torch.where(is_pyr, vx + dx, dx).reshape(nby, nbx)
+        return ivy, ivx, icost.reshape(nby, nbx).to(I32)
+
+    return {size: refine(size, *coarse[size]) for size in sorted(sizes)}
+
+
+def worst_n(cost: torch.Tensor, n_sel: int) -> torch.Tensor:
+    """Indices of the n_sel largest entries of a 1-D cost, ties going to the
+    lower index (what jax.lax.top_k returns; torch.topk promises no order
+    among ties, a stable descending sort does)."""
+    return torch.sort(cost, descending=True, stable=True).indices[:n_sel]
+
+
+def _upu(a: torch.Tensor, S: int) -> torch.Tensor:
+    """Block grid (at block size S) -> 4x4-unit grid."""
+    k = S // 4
+    return a.repeat_interleave(k, 0).repeat_interleave(k, 1)
+
+
+def _intra_in_p(cur, u_pad, v_pad, rec, c32eff, *, qp, lamf, sign_hiding):
+    """Per-CU intra fallback of the tree P stage (CTU 32): whole CTUs whose
+    best intra-32 encode beats the tree's chosen inter cost.
+
+    Runs on the N CTUs with the worst inter RD cost only. References come
+    from the pre-deblock inter reconstruction `rec` with the decoder's
+    availability clips; the 11-mode battery is ranked by SAD, the top 2 are
+    full-coded, the winner is re-coded with sign hiding. Acceptance runs a
+    4-colour cascade so that no accepted CU's reference ring touches
+    another accepted CU: every neighbour an accepted CU predicts from keeps
+    its inter reconstruction, and the order-free batch equals the decoder's
+    sequential result. Returns (acc (nby, nbx) bool, mode (nby, nbx),
+    luma (lev, rec) (nby, nbx, 32, 32), [(lev, rec) (nby, nbx, 16, 16) for U
+    and V])."""
+    from .intra_torch import encode_block_one_mode
+    H, W = cur.shape
+    dev = cur.device
+    nby, nbx = H // 32, W // 32
+    nb_all = nby * nbx
+    recy, recu, recv = rec
+    rr = torch.arange(nby, device=dev)
+    cc = torch.arange(nbx, device=dev)
+    hl = (cc[None] > 0).expand(nby, nbx).reshape(-1)
+    ht = (rr[:, None] > 0).expand(nby, nbx).reshape(-1)
+
+    def rings(plane, n):
+        """Top (2n samples, clipped at the plane's last column), left (n
+        samples, the last replicated below) and corner of every n-block."""
+        ph, pw = plane.shape
+        ar = torch.arange(2 * n, device=dev)
+        ty = (rr * n - 1).clamp(min=0)
+        lx = (cc * n - 1).clamp(min=0)
+        top = plane[ty[:, None, None],
+                    (cc[None, :, None] * n + ar).clamp(0, pw - 1)]
+        left = plane[(rr[:, None, None] * n + ar.clamp(max=n - 1))
+                     .clamp(0, ph - 1), lx[None, :, None]]
+        corner = plane[ty[:, None], lx[None]]
+        return (top.reshape(nb_all, -1), left.reshape(nb_all, -1),
+                corner.reshape(-1))
+
+    # worst-N gating: intra can only win where inter is poor
+    n_sel = min(nb_all, max(128, nb_all // 8))
+    sel_idx = worst_n(c32eff.reshape(-1), n_sel)
+    topv, leftv, cornr = (t[sel_idx] for t in rings(recy, 32))
+    o = _blocks(cur, 32)[sel_idx]
+    hl_s, ht_s = hl[sel_idx], ht[sel_idx]
+
+    # stage 1: rank the 11-mode battery by SAD; stage 2: full-code the top 2
+    refs = intra_ops.prepare_refs(topv, leftv, cornr, hl_s, ht_s, size=32,
+                                  c_idx=0, strong_smoothing=True)
+    modes = const(INTRA_IN_P_MODES, dev)
+    preds11 = intra_ops.predict_all_modes(*refs, size=32, c_idx=0)[:, modes]
+    sad11 = (o[:, None] - preds11).abs().sum(dim=(-1, -2))
+    lanes = torch.arange(n_sel, device=dev)
+    k1 = first_argmin(sad11, 1)
+    sad_2 = sad11.clone()
+    sad_2[lanes, k1] = 1 << 30
+    k2 = first_argmin(sad_2, 1)
+    mode_c = torch.stack([k1, k2], 1)                        # (N, 2)
+    preds = preds11[lanes[:, None], mode_c]                  # (N, 2, 32, 32)
+    o2 = o[:, None]
+    coeff = tx_ops.forward_transform(o2 - preds)
+    lev = quant_ops.quantize(coeff, qp, 5, is_intra=True)
+    rr_ = tx_ops.inverse_transform(quant_ops.dequantize(lev, qp, 5))
+    nz_ = (lev != 0).any(dim=-1).any(dim=-1)
+    rr_ = torch.where(nz_[..., None, None], rr_, 0)
+    rec_ = (preds + rr_).clamp(0, 255)
+    ssd = ((o2 - rec_) * (o2 - rec_)).sum(dim=(-1, -2))
+    bits = torch.clamp(tables.level_bits_est_t(lev), max=16383)
+    cost = ssd + (((lamf >> 4) * (bits + 8)) >> 4)
+    k = first_argmin(cost, 1)
+    icst_s = cost[lanes, k].to(I32)
+    im_s = modes[mode_c[lanes, k]].to(I32)
+    pred_k = preds[lanes, k]
+    ilev_s = lev[lanes, k]
+    if sign_hiding:
+        ilev_s = quant_ops.sign_bit_hiding(ilev_s, coeff[lanes, k], qp, 5)
+        rr_k = tx_ops.inverse_transform(quant_ops.dequantize(ilev_s, qp, 5))
+        nz_k = (ilev_s != 0).any(dim=-1).any(dim=-1)
+        rr_k = torch.where(nz_k[:, None, None], rr_k, 0)
+        irec_s = (pred_k + rr_k).clamp(0, 255)
+    else:
+        irec_s = rec_[lanes, k]
+
+    def spread(vals, fill=0):
+        full = torch.full((nb_all,) + vals.shape[1:], fill, dtype=vals.dtype,
+                          device=dev)
+        full[sel_idx] = vals
+        return full.reshape((nby, nbx) + vals.shape[1:])
+
+    im = spread(im_s)
+    icst = spread(icst_s, 1 << 30)
+    cand = icst < c32eff
+    # 4-colour cascade: colour k accepts only where no earlier accept lies
+    # in its 8-neighbourhood; same-colour CUs never share a ring
+    col = (rr[:, None] % 2) * 2 + (cc[None] % 2)
+    acc = torch.zeros((nby, nbx), dtype=torch.bool, device=dev)
+
+    def ring(m):
+        p = torch.nn.functional.pad(m, (1, 1, 1, 1))
+        return (p[:-2, :-2] | p[:-2, 1:-1] | p[:-2, 2:]
+                | p[1:-1, :-2] | p[1:-1, 2:]
+                | p[2:, :-2] | p[2:, 1:-1] | p[2:, 2:])
+
+    for kcol in range(4):
+        acc = acc | (cand & (col == kcol) & ~ring(acc))
+
+    # chroma: the luma mode (DM) at 16x16, one mode per CU
+    qp_c = tables.chroma_qp_t(qp)
+    m_s = im.reshape(-1)[sel_idx]
+    outs_c = []
+    for rc_c, plane_c in ((recu, u_pad), (recv, v_pad)):
+        topc, leftc, corc = (t[sel_idx] for t in rings(rc_c, 16))
+        lvc_s, rcc_s = encode_block_one_mode(
+            _blocks(plane_c.to(I32), 16)[sel_idx], topc, leftc, corc, hl_s,
+            ht_s, m_s, size=16, c_idx=1, qp=qp_c, strong_smoothing=False,
+            sign_hiding=sign_hiding)
+        outs_c.append((spread(lvc_s), spread(rcc_s)))
+    return acc, im, (spread(ilev_s), spread(irec_s)), outs_c
+
+
+def _p_stage_tree(y_pad, u_pad, v_pad, ry, ru, rv, *, ctu: int, qp,
+                  search: int, me_precision: int, sign_hiding: bool,
+                  tr_split: bool = False, intra_in_p: bool = False,
+                  vis=None, kernels: bool = True):
+    """Inter CU quadtree P stage (CTU 32 -> 16, PU = TU = CU unless
+    `tr_split`), the reference's `_p_stage_tree` for ctu 32 at a fixed QP.
+
+    One 16-granular integer search (hierarchical above HIER_THRESHOLD, else
+    the dense SAD grid sweep with the 32 grids pooled from the 16 grids);
+    both levels are subpel-refined and residual-coded batched, and the split
+    choice is a dense masked select over the node costs. Returns the unit
+    maps (4x4 units), the selected level planes and reconstruction, and the
+    one-buffer host wire of the per-frame path."""
+    if ctu != 32:
+        raise NotImplementedError(f"tree P stage at ctu={ctu} (only 32 is "
+                                  "ported)")
+    H, W = y_pad.shape
+    dev = y_pad.device
+    qp = _qp_tensor(qp, dev)
+    qp_c = tables.chroma_qp_t(qp)
+    lam = const(tables.LAMBDA_ME_FX_P, dev)[qp]
+    lamf = const(tables.LAMBDA_FX_P, dev)[qp]
+    cur = y_pad.to(I32)
+    sizes = (16, 32)
+
+    if search > HIER_THRESHOLD:
+        ints = _me_hier(cur, ry, sizes=sizes, search=search, lam=lam,
+                        kernels=kernels)
+    else:
+        n = 2 * search + 1
+        mvcost = (lam * const(_mv_bits_grid(search), dev)) >> 8
+        g16 = sad_grids(cur, ry, S=16, search=search, pad=PAD)
+        ints = {}
+        for S, g in ((16, g16), (32, _pool2(g16))):
+            cost = g + mvcost[:, None, None]
+            k = first_argmin(cost, 0).to(I32)           # first min, dy-major
+            ints[S] = (k // n - search, k % n - search,
+                       cost.min(dim=0).values.to(I32))
+
+    enc = {}
+    for S in sizes:
+        ivy, ivx, icost = ints[S]
+        enc[S] = _level_encode(cur, u_pad, v_pad, ry, ru, rv, ivy, ivx, S=S,
+                               qp=qp, qp_c=qp_c, lam=lam, search=search,
+                               me_precision=me_precision,
+                               sign_hiding=sign_hiding, tr_split=tr_split,
+                               vis=vis, kernels=kernels)
+        enc[S]["icost"] = icost
+
+    ov = ((lamf >> 4) * 10) >> 4                        # split overhead proxy
+    c16s = _pool2(enc[16]["cost"]) + ov
+    split32 = c16s < enc[32]["cost"]
+    c32eff = torch.where(split32, c16s, enc[32]["cost"]).to(I32)
+    depth_u = _upu(split32, 32).to(I32)
+    whole = depth_u == 0
+
+    def mv_units(e, S):
+        return torch.stack([_upu(e["mvx"], S), _upu(e["mvy"], S)], -1)
+
+    def cbf_units(e, S):
+        return _upu((e["lev_y"] != 0).any(dim=-1).any(dim=-1), S)
+
+    mv_u = torch.where(whole[..., None], mv_units(enc[32], 32),
+                       mv_units(enc[16], 16))
+    cbf_u = torch.where(whole, cbf_units(enc[32], 32), cbf_units(enc[16], 16))
+    # only 32-CUs carry a depth-1 residual quadtree
+    trd_u = (_upu(enc[32]["trd"], 32) * whole).to(I32) if tr_split \
+        else torch.zeros_like(depth_u)
+
+    def sel_plane(key, sub):                            # sub: 4 luma, 2 chroma
+        d_px = whole.repeat_interleave(sub, 0).repeat_interleave(sub, 1)
+        return torch.where(d_px, to_plane(enc[32][key]),
+                           to_plane(enc[16][key]))
+
+    lev_yp = sel_plane("lev_y", 4)
+    lev_up = sel_plane("lev_u", 2)
+    lev_vp = sel_plane("lev_v", 2)
+    rec = (sel_plane("rec_y", 4), sel_plane("rec_u", 2),
+           sel_plane("rec_v", 2))
+
+    pred_intra_u = torch.zeros_like(depth_u)
+    if intra_in_p:
+        acc, im, (ilev, irec), outs_c = _intra_in_p(
+            cur, u_pad, v_pad, rec, c32eff, qp=qp, lamf=lamf,
+            sign_hiding=sign_hiding)
+
+        def sub_plane(plane, blocks_new, S):
+            m = acc.repeat_interleave(S, 0).repeat_interleave(S, 1)
+            return torch.where(m, to_plane(blocks_new), plane)
+
+        lev_yp = sub_plane(lev_yp, ilev, 32)
+        lev_up = sub_plane(lev_up, outs_c[0][0], 16)
+        lev_vp = sub_plane(lev_vp, outs_c[1][0], 16)
+        rec = (sub_plane(rec[0], irec, 32), sub_plane(rec[1], outs_c[0][1],
+                                                      16),
+               sub_plane(rec[2], outs_c[1][1], 16))
+        accu = _upu(acc, 32)
+        pred_intra_u = accu.to(I32)
+        depth_u = torch.where(accu, 0, depth_u)
+        trd_u = torch.where(accu, 0, trd_u)
+        # intra units carry the luma mode in the mv slot of the wire
+        imode_u = _upu(im, 32)
+        mv_u = torch.where(accu[..., None],
+                           torch.stack([imode_u, torch.zeros_like(imode_u)],
+                                       -1), mv_u)
+        cbf_u = torch.where(
+            accu, _upu((ilev != 0).any(dim=-1).any(dim=-1), 32), cbf_u)
+
+    if tr_split:
+        # TB-granular luma cbf for deblocking: split CUs deblock their
+        # interior TU edges from per-16 coefficient presence
+        nz16 = (lev_yp.reshape(H // 16, 16, W // 16, 16) != 0).any(3).any(1)
+        cbf_u = torch.where(trd_u.to(torch.bool), _upu(nz16, 16), cbf_u)
+
+    # per-unit any-nonzero (Y | Cb | Cr) for the host's skip derivation
+    uh, uw = H // 4, W // 4
+    nz = ((lev_yp.reshape(uh, 4, uw, 4) != 0).any(3).any(1)
+          | (lev_up.reshape(uh, 2, uw, 2) != 0).any(3).any(1)
+          | (lev_vp.reshape(uh, 2, uw, 2) != 0).any(3).any(1)).to(I32)
+
+    ly16 = lev_yp.to(torch.int16)
+    lu16 = lev_up.to(torch.int16)
+    lv16 = lev_vp.to(torch.int16)
+    sad = enc[ctu]["icost"]
+    meta = torch.cat([depth_u.reshape(-1), mv_u.reshape(-1).to(I32),
+                      nz.reshape(-1), trd_u.reshape(-1),
+                      pred_intra_u.reshape(-1), sad.reshape(-1)])
+    u8 = torch.uint8
+    return dict(
+        depth_u=depth_u, mv_u=mv_u.to(I32), cbf_u=cbf_u, trd_u=trd_u,
+        pred_intra_u=pred_intra_u,
+        # decoded-QP maps at a fixed QP: per CTU (syntax) and per 16-block
+        # (deblocking)
+        qp_ctu=qp.expand(H // ctu, W // ctu), qp16=qp.expand(H // 16, W // 16),
+        sad=sad,
+        lev_y=ly16, lev_u=lu16, lev_v=lv16,
+        wire=torch.cat([ly16.reshape(-1), lu16.reshape(-1), lv16.reshape(-1),
+                        meta.view(torch.int16)]),
+        recon_y=rec[0].to(u8), recon_u=rec[1].to(u8), recon_v=rec[2].to(u8),
+    )
+
+
+def tree_deblock(rec, res, ctu: int):
+    """Loop filter of a tree P frame from its unit maps."""
+    bs_v, bs_h = dbk.inter_bs_from_units(
+        res["depth_u"], res["mv_u"], res["cbf_u"], ctu.bit_length() - 1,
+        trd_u=res["trd_u"], intra_u=res["pred_intra_u"])
+    qp_map = res["qp16"].repeat_interleave(4, 0).repeat_interleave(4, 1)
+    return dbk.deblock_frame(rec[0], rec[1], rec[2], bs_v=bs_v, bs_h=bs_h,
+                             qp_map=qp_map)
 
 
 def inter_deblock(rec, mvs, lev_y, qp, B: int):
@@ -366,11 +853,38 @@ def p_frame_device(y_pad, u_pad, v_pad, ref_y, ref_u, ref_v, *, B: int, qp,
     return result
 
 
-def deblock_intra_device(rec_y, rec_u, rec_v, *, qp, depth_units):
+def p_frame_tree_device(y_pad, u_pad, v_pad, ref_y, ref_u, ref_v, *, ctu: int,
+                        qp, search: int, me_precision: int,
+                        deblock: bool = False, sign_hiding: bool = False,
+                        tr_split: bool = False, intra_in_p: bool = False,
+                        vis=None, kernels: bool = True):
+    """One quadtree P frame against the previous decoded frame (uint8
+    planes): `_p_stage_tree` plus the loop filter of the selected
+    reconstruction. Returns the reference's p_frame_tree_device dict."""
+    ry = edge_pad(ref_y.to(torch.int16), PAD)
+    ru = edge_pad(ref_u.to(torch.int16), PAD // 2)
+    rv = edge_pad(ref_v.to(torch.int16), PAD // 2)
+    result = _p_stage_tree(y_pad, u_pad, v_pad, ry, ru, rv, ctu=ctu, qp=qp,
+                           search=search, me_precision=me_precision,
+                           sign_hiding=sign_hiding, tr_split=tr_split,
+                           intra_in_p=intra_in_p, vis=vis, kernels=kernels)
+    if deblock:
+        rec = tuple(result[k].to(I32)
+                    for k in ("recon_y", "recon_u", "recon_v"))
+        fy, fu, fv = tree_deblock(rec, result, ctu)
+        result["ref_y"] = fy.to(torch.uint8)
+        result["ref_u"] = fu.to(torch.uint8)
+        result["ref_v"] = fv.to(torch.uint8)
+    return result
+
+
+def deblock_intra_device(rec_y, rec_u, rec_v, *, qp, depth_units,
+                         trd_units=None):
     """Deblocking of an all-intra frame; `depth_units` is the unit-granular
-    CU depth map relative to 32-containers (TU = CU)."""
+    CU depth map relative to 32-containers (TU = 32 >> depth), `trd_units`
+    marks the CUs whose transform splits one level further."""
     H, W = rec_y.shape
-    bs_v, bs_h = dbk.intra_bs_from_depth_units(depth_units)
+    bs_v, bs_h = dbk.intra_bs_from_depth_units(depth_units, trd_u=trd_units)
     qp_map = _qp_tensor(qp, rec_y.device).expand(H // 4, W // 4)
     fy, fu, fv = dbk.deblock_frame(rec_y.to(I32), rec_u.to(I32),
                                    rec_v.to(I32), bs_v=bs_v, bs_h=bs_h,

@@ -1,15 +1,27 @@
-"""The port's reference runs: the slice configuration, the seeded clips, the
-AU digest and the decoder check that chip_smoke.py and the tests share.
+"""The port's reference runs: the configurations, the seeded clips, the AU
+digest and the decoder check that chip_smoke.py and the tests share.
 
 tests/fixtures/torch_port_aus.json holds the SHA-256 and length of every AU
 the JAX package writes for each of RUNS (tools/make_torch_fixtures.py writes
 it, with the same RUNS and the same configuration keywords); the port's AUs
-must hash the same. Both runs use the slice configuration
-(FASTEST_COMPUTATION, cu_size 32, search 16, quarter-pel, fixed QP 32,
-deblocking + SAO + sign hiding, intra_period 100, frame_pipeline_depth 2):
+must hash the same. All runs share cu_size 32, quarter-pel, fixed QP 32,
+deblocking + SAO + sign hiding, intra_period 100, frame_pipeline_depth 2.
+`slice_kwargs` is the fixed-CU configuration (FASTEST_COMPUTATION, search
+16); `fast_kwargs` is the configuration the repository's bench.py times
+(FAST_COMPUTATION, search 64: CU quadtree P frames with hierarchical ME,
+intra-in-P, inter RQT, and the split-RDO IDR):
 
-  small: synth_clip(128, 96, 6, seed=3), encode_frames(chunk=3)
-  720p:  synth_clip(1280, 720, 17, seed=0), encode_frames(chunk=8)
+  small:      synth_clip(128, 96, 6, seed=3), slice, encode_frames(chunk=3)
+  720p:       synth_clip(1280, 720, 17, seed=0), slice, encode_frames(chunk=8)
+  fast_small: synth_clip(128, 96, 6, seed=3), fast, encode_frames(chunk=3)
+  fast_720p:  synth_clip(1280, 720, 9, seed=0), fast, encode_frames(chunk=8)
+
+and small variants of the fast configuration with single settings replaced
+(`over`) and at a size that needs padding (120x88); with search 16 the
+clip's motion leaves the window, so that run re-encodes frames of a chunk as
+IDR (scene cuts).
+INTRA_CASES are single frames (`intra_frame`) through the split-RDO IDR
+stage alone; the fixture holds a SHA-256 per output array for them.
 """
 
 from __future__ import annotations
@@ -25,11 +37,40 @@ from .synth import synth_clip
 RUNS = {
     "small": dict(width=128, height=96, frames=6, seed=3, chunk=3),
     "720p": dict(width=1280, height=720, frames=17, seed=0, chunk=8),
+    "fast_small": dict(width=128, height=96, frames=6, seed=3, chunk=3,
+                       config="fast"),
+    "fast_720p": dict(width=1280, height=720, frames=9, seed=0, chunk=8,
+                      config="fast"),
+    "faster_small": dict(width=128, height=96, frames=4, seed=3, chunk=3,
+                         config="fast",
+                         over=dict(performance_mode="FASTER_COMPUTATION")),
+    "fast_s16_small": dict(width=128, height=96, frames=4, seed=3, chunk=3,
+                           config="fast", over=dict(me_search_range=16)),
+    "fast_inter_tr0_small": dict(width=128, height=96, frames=4, seed=3,
+                                 chunk=3, config="fast",
+                                 over=dict(max_inter_tr_depth=0)),
+    "fast_intra_tr0_small": dict(width=128, height=96, frames=4, seed=3,
+                                 chunk=3, config="fast",
+                                 over=dict(max_intra_tr_depth=0)),
+    "fast_padded_small": dict(width=120, height=88, frames=4, seed=3,
+                              chunk=3, config="fast"),
 }
+
+# single frames through encode_frame_intra(split_rdo=True): (width, height,
+# tu_depth), the frame is intra_frame(width, height, seed=5)
+INTRA_CASES = {
+    "96x64_tu1": dict(width=96, height=64, tu_depth=1, seed=5),
+    "96x64_tu0": dict(width=96, height=64, tu_depth=0, seed=5),
+    "128x96_tu1": dict(width=128, height=96, tu_depth=1, seed=5),
+    "128x96_tu0": dict(width=128, height=96, tu_depth=0, seed=5),
+}
+INTRA_KEYS = ("wire", "modes", "mode_units", "depth_units", "part_units",
+              "trd_units", "lev_y", "lev_u", "lev_v", "recon_y", "recon_u",
+              "recon_v")
 
 
 def slice_kwargs(width: int, height: int) -> dict:
-    """Keywords of the slice configuration, enums by name, so either
+    """Keywords of the fixed-CU configuration, enums by name, so either
     package can build its own EncoderConfig from them."""
     return dict(width=width, height=height, qp=32, cu_size=32,
                 intra_period=100, me_search_range=16, sign_hiding=True,
@@ -38,10 +79,39 @@ def slice_kwargs(width: int, height: int) -> dict:
                 performance_mode="FASTEST_COMPUTATION")
 
 
-def slice_config(width: int, height: int) -> EncoderConfig:
+def fast_kwargs(width: int, height: int, **over) -> dict:
+    """Keywords of the configuration bench.py times (FAST_COMPUTATION,
+    search 64), with `over` replacing single settings."""
     kw = slice_kwargs(width, height)
+    kw.update(me_search_range=64, performance_mode="FAST_COMPUTATION")
+    kw.update(over)
+    return kw
+
+
+def run_kwargs(name: str) -> dict:
+    """Configuration keywords of one of RUNS."""
+    r = RUNS[name]
+    if r.get("config") == "fast":
+        return fast_kwargs(r["width"], r["height"], **r.get("over", {}))
+    return slice_kwargs(r["width"], r["height"])
+
+
+def config_from(kw: dict) -> EncoderConfig:
+    kw = dict(kw)
     kw["performance_mode"] = PerformanceMode[kw["performance_mode"]]
     return EncoderConfig(**kw)
+
+
+def slice_config(width: int, height: int) -> EncoderConfig:
+    return config_from(slice_kwargs(width, height))
+
+
+def fast_config(width: int, height: int, **over) -> EncoderConfig:
+    return config_from(fast_kwargs(width, height, **over))
+
+
+def run_config(name: str) -> EncoderConfig:
+    return config_from(run_kwargs(name))
 
 
 def clip(name: str) -> list:
@@ -49,6 +119,47 @@ def clip(name: str) -> list:
     r = RUNS[name]
     return list(synth_clip(r["width"], r["height"], r["frames"],
                            seed=r["seed"]))
+
+
+def _smooth(rng, h: int, w: int, amp: float, cell: int) -> np.ndarray:
+    """Low-pass noise: random values on a coarse grid, bilinearly
+    interpolated."""
+    g = rng.uniform(-amp, amp, (h // cell + 2, w // cell + 2))
+    ys, xs = np.arange(h) / cell, np.arange(w) / cell
+    y0, x0 = ys.astype(int), xs.astype(int)
+    fy, fx = (ys - y0)[:, None], (xs - x0)[None, :]
+    return (g[y0][:, x0] * (1 - fy) * (1 - fx)
+            + g[y0][:, x0 + 1] * (1 - fy) * fx
+            + g[y0 + 1][:, x0] * fy * (1 - fx)
+            + g[y0 + 1][:, x0 + 1] * fy * fx)
+
+
+def intra_frame(width: int, height: int, seed: int) -> tuple:
+    """One (y, u, v) uint8 frame that drives every branch of the split-RDO
+    intra quadtree at QP 32: detail grows from left to right (whole 32x32
+    CUs, then 16x16 and 8x8 CUs, then NxN leaves in the noise), and a band
+    of oblique stripes of drifting contrast, which one directional mode
+    predicts the better the nearer its reference samples (TU splits)."""
+    rng = np.random.default_rng(seed)
+    H, W = height, width
+    yy, xx = np.mgrid[:H, :W]
+    gain = np.linspace(0, 1, W)[None, :]
+    y = (128 + _smooth(rng, H, W, 50, 32) + gain * _smooth(rng, H, W, 70, 4)
+         + gain ** 2 * rng.normal(0, 45, (H, W)))
+    band = slice(21, 53)
+    y[band] = 128 + (40 + 0.4 * xx[band]) * np.sin(
+        (xx[band] + 2 * yy[band]) / 5.0)
+    u, v = (128 + _smooth(rng, H // 2, W // 2, 25, 8)
+            + rng.normal(0, 2, (H // 2, W // 2)) for _ in range(2))
+    return tuple(np.clip(np.rint(p), 0, 255).astype(np.uint8)
+                 for p in (y, u, v))
+
+
+def array_digest(a) -> str:
+    """SHA-256 of an integer array's values and shape (as little-endian
+    int32, whatever type either package holds it in)."""
+    a = np.ascontiguousarray(np.asarray(a).astype("<i4"))
+    return hashlib.sha256(repr(a.shape).encode() + a.tobytes()).hexdigest()
 
 
 def au_digest(aus) -> list:

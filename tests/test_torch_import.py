@@ -29,6 +29,7 @@ PORT_MODULES = [
     "homerhevc_tpu_torch.entropy.native_backend",
     "homerhevc_tpu_torch.entropy.native.gen_layout",
     "homerhevc_tpu_torch.kernels.build",
+    "homerhevc_tpu_torch.ops.blocksum",
     "homerhevc_tpu_torch.ops.transforms",
     "homerhevc_tpu_torch.ops.quant",
     "homerhevc_tpu_torch.ops.intra",

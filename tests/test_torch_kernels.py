@@ -85,13 +85,20 @@ def test_integer_me_plain_dtypes_match_pallas(kind, dtype, search):
         assert int(it.max()) == 0            # every offset ties: the first
 
 
-# call sites of the P stage at CU 32, search 8, on a 128x96 frame:
+# call sites of the P stages at search 8 on a 128x96 frame. At CU size S:
 # luma G = S+9 with rows/cols from lo = PAD - (search+7), chroma G = S/2+3
-# with lo = PAD/2 - (search/2+3)
+# with lo = PAD/2 - (search/2+3); the hierarchical search's refine window
+# G = S+6 with lo = PAD - (search+3). The fixed-CU stage gathers at S 32,
+# the quadtree stage at S 16 as well.
 SITES = {
     "luma": dict(G=41, S_row=32, mo=8 + 7, pad=PAD, shape=(96, 128)),
     "chroma": dict(G=19, S_row=16, mo=8 // 2 + 3, pad=PAD // 2,
                    shape=(48, 64)),
+    "luma16": dict(G=25, S_row=16, mo=8 + 7, pad=PAD, shape=(96, 128)),
+    "chroma16": dict(G=11, S_row=8, mo=8 // 2 + 3, pad=PAD // 2,
+                     shape=(48, 64)),
+    "refine32": dict(G=38, S_row=32, mo=8 + 3, pad=PAD, shape=(96, 128)),
+    "refine16": dict(G=22, S_row=16, mo=8 + 3, pad=PAD, shape=(96, 128)),
 }
 
 

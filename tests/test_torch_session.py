@@ -8,7 +8,8 @@ versions) against homerhevc_tpu.api.HomerEncoder(backend="jax").
   * the port's stream decodes in libde265 to the port's own recon;
   * seed_reference carries a P chain over: both sessions seeded from the
     same planes give byte-identical P AUs;
-  * settings outside the slice raise NotImplementedError.
+  * settings outside the ported configurations raise NotImplementedError
+    (the quadtree configurations are in tests/test_torch_session_fast.py).
 
 Each package gets its own EncoderConfig, built from one keyword dictionary
 (the port refuses the other package's class). Tolerance: exact, byte for
@@ -126,8 +127,8 @@ def test_seed_reference_carry_over(small):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("performance_mode", PerformanceMode.FAST_COMPUTATION),
-    ("me_search_range", 32),
+    ("performance_mode", PerformanceMode.FULL_COMPUTATION),
+    ("cu_size", 16),
     ("cu_size", 64),
     ("gop_size", 2),
     ("bitrate_mode", BitrateMode.CBR),

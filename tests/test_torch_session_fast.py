@@ -1,0 +1,232 @@
+"""Session level, quadtree configurations: the torch port's HomerEncoder
+(device=cpu, plain kernel versions) with the keywords the repository's
+bench.py times (FAST_COMPUTATION, search 64, QP 32, deblocking + SAO + sign
+hiding) and its neighbours, against the JAX package. Tolerance: exact, byte
+for byte.
+
+  * live: homerhevc_tpu.api.HomerEncoder(backend="jax") runs in this process
+    on the first four frames of the `fast_small` clip (the reference's
+    split-RDO IDR stage compiles for minutes on a CPU, so this is the one
+    live session); its AUs must equal the port's and the committed fixture;
+  * through the fixture tests/fixtures/torch_port_aus.json (written from the
+    JAX package by tools/make_torch_fixtures.py): FASTER, FAST with search
+    16 (the dense front end; the clip's motion leaves that window, so frames
+    inside a chunk are re-encoded as IDR), with max_inter_tr_depth=0, with
+    max_intra_tr_depth=0, and at 120x88 (padded to 128x96);
+  * every stream decodes in libde265 to the port's reconstruction;
+  * encode_frame frame by frame equals encode_frames; seed_reference
+    continues a FAST P chain; the settings still outside raise
+    NotImplementedError naming the setting.
+"""
+
+import dataclasses
+import functools
+import hashlib
+import json
+import os
+
+import numpy as np
+import pytest
+
+from homerhevc_tpu_torch.api import HomerEncoder
+from homerhevc_tpu_torch.config import (BitrateMode, PerformanceMode,
+                                        RDMode)
+from homerhevc_tpu_torch.utils import fixtures as fx
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_aus.json")
+
+VARIANTS = ("faster_small", "fast_s16_small", "fast_inter_tr0_small",
+            "fast_intra_tr0_small", "fast_padded_small")
+
+
+def _tools():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "make_torch_fixtures",
+        os.path.join(ROOT, "tools", "make_torch_fixtures.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@functools.lru_cache(maxsize=None)
+def _fixture():
+    with open(FIXTURE) as f:
+        return json.load(f)
+
+
+@functools.lru_cache(maxsize=None)
+def _port_run(name: str):
+    """(AUs, final reference planes, StreamParams) of the port for one of
+    the fixture's runs."""
+    enc = HomerEncoder(fx.run_config(name), device="cpu", fetch_recon=False)
+    aus = enc.encode_frames(fx.clip(name), chunk=fx.RUNS[name]["chunk"])
+    ref = tuple(p.numpy() for p in enc._ref)
+    enc.close()
+    return aus, ref, enc.params
+
+
+def _is_idr(au: bytes) -> bool:
+    """An IDR AU opens with its parameter sets: the first NAL is the VPS."""
+    assert au[:4] == b"\x00\x00\x00\x01"
+    return (au[4] >> 1) & 0x3F == 32
+
+
+def _assert_decodes(name: str):
+    from homerhevc_tpu_torch.validate import de265
+    if not de265.available():
+        pytest.skip("libde265 not available")
+    aus, ref, _ = _port_run(name)
+    r = fx.RUNS[name]
+    dec = de265.decode_annexb(b"".join(aus))
+    assert len(dec) == len(aus)
+    h, w = r["height"], r["width"]
+    for p, q, (ph, pw) in zip(dec[-1], ref, ((h, w), (h // 2, w // 2),
+                                             (h // 2, w // 2))):
+        np.testing.assert_array_equal(p, q[:ph, :pw])
+
+
+# ---------------------------------------------------------------------------
+def test_fast_small_matches_fixture():
+    aus, _, params = _port_run("fast_small")
+    assert fx.au_digest(aus) == _fixture()["fast_small"]["aus"]
+    assert (params.min_cu_log2, params.max_tr_depth_intra,
+            params.max_tr_depth_inter) == (3, 1, 1)
+    assert _is_idr(aus[0]) and not any(_is_idr(a) for a in aus[1:])
+
+
+def test_fast_small_decodes():
+    _assert_decodes("fast_small")
+
+
+def test_fast_matches_live_jax():
+    # IDR + one chunk of 3: one compile of the reference's IDR stage and one
+    # of its quadtree chunk (minutes on a CPU); AUs do not depend on how a
+    # clip is cut into chunks, so these are the fixture's first four
+    tools = _tools()
+    r = fx.RUNS["fast_small"]
+    want = tools.jax_encode(fx.run_kwargs("fast_small"),
+                            fx.clip("fast_small")[:4], r["chunk"])
+    assert fx.au_digest(want) == _fixture()["fast_small"]["aus"][:4]
+    got = _port_run("fast_small")[0][:4]
+    for k, (a, b) in enumerate(zip(want, got)):
+        assert a == b, f"AU {k} differs: {len(a)} vs {len(b)} bytes"
+
+
+@pytest.mark.parametrize("name", VARIANTS)
+def test_variant_matches_fixture(name):
+    entry = _fixture()[name]
+    assert {k: entry[k] for k in fx.RUNS[name]} == fx.RUNS[name]
+    aus, _, params = _port_run(name)
+    assert fx.au_digest(aus) == entry["aus"]
+    # the setting took effect
+    base = _port_run("fast_small")[0][:len(aus)]
+    if name == "fast_intra_tr0_small":
+        assert params.max_tr_depth_intra == 0 and aus[0] != base[0]
+    else:
+        assert params.max_tr_depth_intra == 1
+    if name == "fast_inter_tr0_small":
+        assert params.max_tr_depth_inter == 0 and aus[1:] != base[1:]
+    if name == "faster_small":
+        # fixed-CU P frames, but the quadtree SPS of the split-RDO IDR
+        assert (params.min_cu_log2, params.max_tr_depth_inter) == (3, 0)
+        assert aus[1:] != base[1:]
+    if name == "fast_padded_small":
+        assert (params.pad_right, params.pad_bottom) == (8, 8)
+    if name == "fast_s16_small":
+        assert aus[1:] != base[1:]
+
+
+@pytest.mark.parametrize("name", VARIANTS)
+def test_variant_decodes(name):
+    _assert_decodes(name)
+
+
+def test_scene_cut_inside_a_tree_chunk():
+    # search 16 loses the clip's motion: the chunk [1, 2, 3] is dispatched
+    # as P frames, frame 1 trips the scene-cut test and is re-encoded as
+    # IDR, the rest of the chunk per frame (held to the JAX package's bytes
+    # by test_variant_matches_fixture)
+    aus = _port_run("fast_s16_small")[0]
+    idr = [_is_idr(a) for a in aus]
+    assert idr[0] and idr[1] and not all(idr)
+    cfg = dataclasses.replace(fx.run_config("fast_s16_small"),
+                              reinit_gop_on_scene_change=False)
+    enc = HomerEncoder(cfg, device="cpu", fetch_recon=False)
+    plain = enc.encode_frames(fx.clip("fast_s16_small"), chunk=3)
+    assert [_is_idr(a) for a in plain] == [True, False, False, False]
+
+
+@pytest.mark.parametrize("name", ["fast_small", "fast_s16_small",
+                                  "faster_small"])
+def test_per_frame_path_matches_chunked(name):
+    cfg = fx.run_config(name)
+    enc = HomerEncoder(cfg, device="cpu")
+    got = [enc.encode_frame(*f) for f in fx.clip(name)]
+    assert got == _port_run(name)[0]
+    assert enc.last_recon[0].shape == (cfg.height, cfg.width)
+    np.testing.assert_array_equal(
+        enc.last_recon[0], _port_run(name)[1][0][:cfg.height, :cfg.width])
+
+
+def test_seed_reference_carry_over_fast():
+    # a session seeded with the planes behind frame 3 writes the fixture's
+    # AUs 4 and 5
+    frames = fx.clip("fast_small")
+    cfg = fx.run_config("fast_small")
+    first = HomerEncoder(cfg, device="cpu", fetch_recon=False)
+    head = first.encode_frames(frames[:4], chunk=3)
+    ref = tuple(p.numpy() for p in first._ref)
+    port = HomerEncoder(cfg, device="cpu", fetch_recon=False)
+    port.seed_reference(ref, poc=4, last_idr=0)
+    tail = port.encode_frames(frames[4:], chunk=3)
+    assert fx.au_digest(head + tail) == _fixture()["fast_small"]["aus"]
+    assert port.poc == 6
+    with pytest.raises(ValueError):
+        port.seed_reference(tuple(p[:-4] for p in ref), poc=6, last_idr=0)
+
+
+@pytest.mark.parametrize("mode", ["FASTEST_COMPUTATION", "FASTER_COMPUTATION",
+                                  "FAST_COMPUTATION"])
+@pytest.mark.parametrize("search", [8, 24, 32, 64])
+def test_settings_inside_are_admitted(mode, search):
+    cfg = fx.fast_config(128, 96, performance_mode=mode,
+                         me_search_range=search)
+    enc = HomerEncoder(cfg, device="cpu")
+    assert enc.intra_split == (mode != "FASTEST_COMPUTATION")
+    assert enc.inter_split == (mode == "FAST_COMPUTATION")
+
+
+@pytest.mark.parametrize("field,value", [
+    ("performance_mode", PerformanceMode.FULL_COMPUTATION),
+    ("cu_size", 64),
+    ("cu_size", 16),
+    ("gop_size", 2),
+    ("bitrate_mode", BitrateMode.CBR),
+    ("bitrate_mode", BitrateMode.VBR),
+    ("wpp", True),
+    ("wpp_shards", 2),
+    ("rd_mode", RDMode.FAST),
+    ("rd_mode", RDMode.DIST_ONLY),
+    ("bit_depth", 10),
+])
+def test_out_of_slice_settings_raise(field, value):
+    cfg = dataclasses.replace(fx.fast_config(128, 96), **{field: value})
+    with pytest.raises(NotImplementedError, match=field):
+        HomerEncoder(cfg, device="cpu")
+
+
+def test_earlier_fixture_entries_did_not_move():
+    # the fixed-CU runs of the fixture, as first written from the JAX package
+    want = {
+        "small": "57b868a82d6ba0abc28ecb16c237193258a654d8262210ad3b96e7b06a"
+                 "ae520f",
+        "720p": "38d9e00ffedbef2351fe8f5d2144326fd973db539b9045787130323f64b"
+                "c68e0",
+    }
+    for name, digest in want.items():
+        aus = _fixture()[name]["aus"]
+        assert len(aus) == fx.RUNS[name]["frames"]
+        assert hashlib.sha256(json.dumps(aus, sort_keys=True)
+                              .encode()).hexdigest() == digest, name

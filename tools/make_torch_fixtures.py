@@ -8,7 +8,13 @@ The runs, the clips and the configuration keywords are the port's own
 (homerhevc_tpu_torch/utils/fixtures.py); this tool is the one place that
 feeds them to the JAX package.
 
-Run on the CPU:  JAX_PLATFORMS=cpu python tools/make_torch_fixtures.py
+Run on the CPU:  JAX_PLATFORMS=cpu python tools/make_torch_fixtures.py [RUN ...]
+
+With no argument every run and every intra case is computed anew; with
+names (of RUNS or INTRA_CASES) only those are computed and the other entries
+of the file are kept as they are (the two 720p runs take minutes each on a
+CPU, and every new shape or transform depth of the split-RDO IDR compiles
+for about three minutes).
 """
 
 from __future__ import annotations
@@ -21,41 +27,87 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(ROOT, "tests", "fixtures", "torch_port_aus.json")
 
 
-def jax_config(width: int, height: int):
-    """The slice configuration as the JAX package's own EncoderConfig."""
+def jax_config_from(kw: dict):
+    """Configuration keywords (enums by name) as the JAX package's own
+    EncoderConfig."""
     from homerhevc_tpu.config import EncoderConfig, PerformanceMode
-    from homerhevc_tpu_torch.utils.fixtures import slice_kwargs
-    kw = slice_kwargs(width, height)
+    kw = dict(kw)
     kw["performance_mode"] = PerformanceMode[kw["performance_mode"]]
     return EncoderConfig(**kw)
 
 
-def jax_run(name: str) -> list:
-    """AUs of the JAX package for one of the port's RUNS (imports jax)."""
+def jax_config(width: int, height: int):
+    """The fixed-CU slice configuration as the JAX package's own."""
+    from homerhevc_tpu_torch.utils.fixtures import slice_kwargs
+    return jax_config_from(slice_kwargs(width, height))
+
+
+def jax_encode(kw: dict, frames, chunk: int) -> list:
+    """AUs of the JAX package for one keyword dictionary (imports jax)."""
     from homerhevc_tpu.api import HomerEncoder
-    from homerhevc_tpu_torch.utils.fixtures import RUNS, clip
-    r = RUNS[name]
-    enc = HomerEncoder(jax_config(r["width"], r["height"]), backend="jax",
-                       fetch_recon=False)
+    enc = HomerEncoder(jax_config_from(kw), backend="jax", fetch_recon=False)
     try:
-        return enc.encode_frames(clip(name), chunk=r["chunk"])
+        return enc.encode_frames(frames, chunk=chunk)
     finally:
         enc.close()
 
 
-def main() -> int:
-    from homerhevc_tpu_torch.utils.fixtures import RUNS, au_digest
-    out = {name: dict(RUNS[name], aus=au_digest(jax_run(name)))
-           for name in RUNS}
+def jax_run(name: str) -> list:
+    """AUs of the JAX package for one of the port's RUNS."""
+    from homerhevc_tpu_torch.utils.fixtures import RUNS, clip, run_kwargs
+    return jax_encode(run_kwargs(name), clip(name), RUNS[name]["chunk"])
+
+
+def jax_intra_case(name: str) -> dict:
+    """SHA-256 per output array of the JAX package's split-RDO IDR stage for
+    one of the port's INTRA_CASES."""
+    import jax.numpy as jnp
+
+    from homerhevc_tpu.pipeline import intra_jax
+    from homerhevc_tpu_torch.utils.fixtures import (INTRA_CASES, INTRA_KEYS,
+                                                    array_digest, intra_frame)
+    c = INTRA_CASES[name]
+    frame = intra_frame(c["width"], c["height"], c["seed"])
+    out = intra_jax.encode_frame_intra(
+        *map(jnp.asarray, frame), B=32, qp=32, sign_hiding=True,
+        split_rdo=True, rd_mode=1, tu_depth=c["tu_depth"])
+    return {k: array_digest(out[k]) for k in INTRA_KEYS}
+
+
+def main(argv) -> int:
+    from homerhevc_tpu_torch.utils.fixtures import (INTRA_CASES, RUNS,
+                                                    au_digest)
+    names = argv or list(RUNS) + list(INTRA_CASES)
+    unknown = [n for n in names if n not in RUNS and n not in INTRA_CASES]
+    if unknown:
+        print(f"unknown runs {unknown}; known: "
+              f"{list(RUNS) + list(INTRA_CASES)}", file=sys.stderr)
+        return 2
+    out = {}
+    if argv and os.path.exists(OUT):
+        with open(OUT) as f:
+            out = json.load(f)
+    intra = out.pop("intra_split", {})
+    for name in names:
+        if name in RUNS:
+            out[name] = dict(RUNS[name], aus=au_digest(jax_run(name)))
+        else:
+            intra[name] = dict(INTRA_CASES[name],
+                               arrays=jax_intra_case(name))
+        print(f"{name}: done", flush=True)
+    out = {name: out[name] for name in RUNS if name in out}
+    out["intra_split"] = {n: intra[n] for n in INTRA_CASES if n in intra}
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
     with open(OUT, "w") as f:
         json.dump(out, f, indent=1)
         f.write("\n")
     print(f"wrote {OUT}: " + ", ".join(
-        f"{k} {len(v['aus'])} AUs" for k, v in out.items()))
+        f"{k} {len(v['aus'])} AUs" for k, v in out.items()
+        if k != "intra_split")
+        + f", intra_split {len(out['intra_split'])} cases")
     return 0
 
 
 if __name__ == "__main__":
     sys.path.insert(0, ROOT)
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

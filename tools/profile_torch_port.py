@@ -1,28 +1,52 @@
-"""Where the time goes in the torch port on one GPU (1280x720 slice).
+"""Where the time goes in the torch port on one GPU at 1280x720.
 
-    python3 tools/profile_torch_port.py
+    python3 tools/profile_torch_port.py [fastest|fast] [--idr-ctus RxC]
+                                        [--no-idr-profile]
 
-Profiles, with torch.profiler (CPU + CUDA activities), one IDR device stage
-and one P chunk of 8 frames (device stage only, no host CABAC) after a
-warm-up, and prints for each window: wall time, summed device kernel time,
-device busy share (kernel time / wall), CUDA kernel launches, and the top
-operators by device time. Needs a CUDA device; imports no JAX.
+`fastest` is the fixed-CU configuration (FASTEST_COMPUTATION, search 16),
+`fast` (the default) the one the repository's bench.py times
+(FAST_COMPUTATION, search 64: quadtree P frames, split-RDO IDR).
+
+For one P chunk of 8 frames (device stage only, no host CABAC) and for one
+IDR device stage, after a warm-up, torch.profiler (CPU + CUDA activities)
+gives: wall time, summed device kernel time, device busy share (kernel time
+/ wall), kernel launches (in all, and per frame), and the top operators by
+device time. Then the same P chunk runs once more with every stage of the
+frame loop between synchronising host timers, which gives each stage's share
+of the chunk (the synchronisation itself lengthens the whole a little, so
+the shares are of the sum of the stages).
+
+The split-RDO IDR of `fast` makes millions of launches, and a profile of the
+whole picture does not end within a quarter of an hour on an H100's host.
+Its launches go with the diagonals of the wavefront (every lane of a
+diagonal is one batch), not with the picture's area, so by default it is
+profiled on the top-left 3 x 8 CTUs of the picture (12 diagonals against 84)
+and the launches per diagonal are printed; its wall time on the whole
+picture is still printed, unprofiled. `--idr-ctus RxC` sets the crop
+(`0x0`: the whole picture, the default for `fastest`), `--no-idr-profile`
+leaves the profile out. Needs a CUDA device; imports no JAX.
 """
 
 from __future__ import annotations
 
+import argparse
 import os
+import subprocess
 import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+LAUNCH_KEYS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+               "cuLaunchKernelEx")
 
-def _window(name, fn):
+
+def _window(name, fn, per: int = 1, unit: str = "frame", warm: bool = True):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()                                           # warm-up
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -33,47 +57,177 @@ def _window(name, fn):
     events = prof.key_averages()
     dev_us = sum(e.self_device_time_total for e in events
                  if e.device_type.name == "CUDA")
-    launches = sum(e.count for e in events
-                   if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
-                                "cudaLaunchKernelExC", "cuLaunchKernelEx"))
-    print(f"{name}: wall {wall * 1000:.1f} ms, device kernels "
+    launches = sum(e.count for e in events if e.key in LAUNCH_KEYS)
+    print(f"{name}: wall {wall * 1000:.1f} ms (profiler on), device kernels "
           f"{dev_us / 1000:.1f} ms, busy {dev_us / 1e6 / wall:.1%}, "
-          f"{launches} kernel launches")
+          f"{launches} kernel launches ({launches / per:.0f} per {unit})",
+          flush=True)
     print(events.table(sort_by="self_device_time_total", row_limit=12,
-                       max_name_column_width=48))
+                       max_name_column_width=48), flush=True)
 
 
-def main() -> int:
+def _synced_ms(fn) -> float:
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+class StageClock:
+    """Synchronising host timers around named functions of the P frame
+    loop; a stage called inside another is taken off its caller's time."""
+
+    def __init__(self):
+        self.ms = {}
+        self._stack = []
+
+    def wrap(self, module, attr, name=None):
+        import torch
+        name = name or attr
+        fn = getattr(module, attr)
+
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            self._stack.append(0.0)
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                dt = (time.perf_counter() - t0) * 1e3
+                inner = self._stack.pop()
+                self.ms[name] = self.ms.get(name, 0.0) + dt - inner
+                if self._stack:
+                    self._stack[-1] += dt
+
+        setattr(module, attr, timed)
+        return lambda: setattr(module, attr, fn)
+
+    def report(self, title, total_ms, frames):
+        named = sum(self.ms.values())
+        print(f"{title}: {total_ms:.1f} ms with the stage timers on; stages "
+              f"sum to {named:.1f} ms, the rest (padding, selects, unit maps, "
+              f"casts) {total_ms - named:.1f} ms")
+        for k, v in sorted(self.ms.items(), key=lambda kv: -kv[1]):
+            print(f"  {k:<34s} {v:9.1f} ms  {v / total_ms:6.1%}  "
+                  f"{v / frames:8.2f} ms per frame")
+
+
+def main(argv) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("config", nargs="?", default="fast",
+                    choices=("fastest", "fast"))
+    ap.add_argument("--idr-ctus", default=None, metavar="RxC",
+                    help="profile the IDR on the top-left R x C CTUs only "
+                         "(default: 3x8 for fast, 0x0 = whole for fastest)")
+    ap.add_argument("--no-idr-profile", action="store_true")
+    args = ap.parse_args(argv)
+
     sys.path.insert(0, ROOT)
     import numpy as np
     import torch
 
+    from homerhevc_tpu_torch import tables
     from homerhevc_tpu_torch.api import HomerEncoder
     from homerhevc_tpu_torch.device import require_cuda
-    from homerhevc_tpu_torch.pipeline import intra_torch, p_chunk
-    from homerhevc_tpu_torch.utils.fixtures import slice_config
+    from homerhevc_tpu_torch.pipeline import intra_torch, p_chunk, p_torch
+    from homerhevc_tpu_torch.utils import fixtures as fx
     from homerhevc_tpu_torch.utils.synth import synth_clip
 
     dev = require_cuda()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    cfg = (fx.fast_config if args.config == "fast" else fx.slice_config)(
+        1280, 720)
+    print(f"configuration {args.config}: {cfg.performance_mode.name}, search "
+          f"{cfg.me_search_range}, on {card}", flush=True)
 
     frames = list(synth_clip(1280, 720, 9, seed=0))
-    enc = HomerEncoder(slice_config(1280, 720), device=dev)
+    enc = HomerEncoder(cfg, device=dev)
+    t0 = time.perf_counter()
     enc.encode_frames(frames[:1])                  # IDR -> reference planes
+    print(f"first IDR through the session (cold): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     padded = [enc._pad_frame(*f) for f in frames]
     y0, u0, v0 = (torch.as_tensor(p, device=dev) for p in padded[0])
     ys, us, vs = (torch.as_tensor(np.stack([p[k] for p in padded[1:9]]),
                                   device=dev) for k in range(3))
-    qps = torch.full((8,), 32, dtype=torch.int32, device=dev)
+    qps = torch.full((8,), cfg.qp, dtype=torch.int32, device=dev)
     ref = enc._ref
+    tu = enc.params.max_tr_depth_intra
 
-    _window("idr", lambda: intra_torch.encode_frame_intra(
-        y0, u0, v0, B=32, qp=32, sign_hiding=True))
-    _window("p_chunk8", lambda: p_chunk.p_chunk_device(
-        ys, us, vs, *ref, qps, ctu=32, search=16, me_precision=2,
-        sign_hiding=True, deblock=True, sao=True, cap=enc._chunk_cap))
+    def chunk():
+        return p_chunk.p_chunk_device(
+            ys, us, vs, *ref, qps, deblock=True, sao=True,
+            cap=enc._chunk_cap, tree=enc.inter_split, **enc._tree_kwargs())
+
+    _window("p_chunk8", chunk, per=8)
+
+    clock = StageClock()
+    undo = [clock.wrap(p_torch, "sad_grids", "sad_grids (SAD sweeps)"),
+            clock.wrap(p_torch, "_me_hier_coarse",
+                       "_me_hier coarse (pool, argmin)"),
+            clock.wrap(p_torch, "_me_hier", "_me_hier refine (gather, 98)"),
+            clock.wrap(p_torch, "integer_me", "integer_me (me_sad)"),
+            clock.wrap(p_torch, "_level_encode"),
+            clock.wrap(p_torch, "_p_stage_tail", "_p_stage_tail"),
+            clock.wrap(p_torch, "_intra_in_p"),
+            clock.wrap(p_torch, "tree_deblock", "deblock"),
+            clock.wrap(p_torch, "inter_deblock", "deblock"),
+            clock.wrap(p_chunk, "_sao_device", "sao"),
+            clock.wrap(p_chunk, "_frame_wire", "wire")]
+    total = _synced_ms(chunk)
+    for u in undo:
+        u()
+    clock.report("p_chunk8 stages", total, 8)
+    print(f"p_chunk8 without timers: {_synced_ms(chunk):.1f} ms", flush=True)
+
+    def idr(planes):
+        return intra_torch.encode_frame_intra(
+            *planes, B=32, qp=cfg.qp, sign_hiding=True,
+            split_rdo=enc.intra_split, tu_depth=tu)
+
+    whole = (y0, u0, v0)
+    ms = _synced_ms(lambda: idr(whole))
+    line = f"idr (whole picture, no profiler): {ms:.1f} ms"
+    if enc.intra_split:
+        qp_t = torch.tensor(cfg.qp, dtype=torch.int32, device=dev)
+        lam = torch.as_tensor(tables.LAMBDA_FX, device=dev)[qp_t]
+
+        def pass_a(y):
+            return intra_torch._open_loop_maps(
+                y, B=32, qp=qp_t, lam_fx=lam, strong_smoothing=True,
+                tu_split=bool(tu))
+
+        ms_a = _synced_ms(lambda: pass_a(y0))
+        line += f", pass A {ms_a:.1f} ms, pass B {ms - ms_a:.1f} ms"
+    print(line, flush=True)
+    if not args.no_idr_profile:
+        crop = args.idr_ctus or ("3x8" if enc.intra_split else "0x0")
+        rows, cols = (int(v) for v in crop.split("x"))
+        planes, what = whole, "whole picture"
+        nby, nbx = enc.ph // 32, enc.pw // 32
+        if rows and cols:
+            h, w = rows * 32, cols * 32
+            planes = (y0[:h, :w].contiguous(),
+                      u0[:h // 2, :w // 2].contiguous(),
+                      v0[:h // 2, :w // 2].contiguous())
+            what = f"top-left {rows} x {cols} of {nby} x {nbx} CTUs"
+            nby, nbx = rows, cols
+        diagonals = nbx + 2 * (nby - 1)
+        if enc.intra_split:
+            _window(f"idr pass A ({what})", lambda: pass_a(planes[0]),
+                    unit="IDR", warm=False)
+        _window(f"idr ({what}; {diagonals} diagonals of the whole picture's "
+                f"{enc.pw // 32 + 2 * (enc.ph // 32 - 1)})",
+                lambda: idr(planes), per=diagonals, unit="diagonal",
+                warm=False)
     enc.close()
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))
