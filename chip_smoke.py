@@ -10,38 +10,49 @@ Phases, each of which raises on failure (non-zero exit, no result line):
                libhenc (g++); print what -Xptxas -v says of each kernel
   3. kernels — each kernel against its plain PyTorch version, exact
                equality: me_sad on real, random and all-tie data, from
-               uint8 and int16 planes, at 736x1280 (B 32, S 16), at the
-               128x96 fixture's shapes and at search 8; gather_win on real
-               and random data with planted out-of-range starts, from
-               uint8 and int16 planes, at every call site of both paths at
-               both sizes: the fixed-CU path's luma window (G 41) and chroma
-               pair in one launch (G 19), and the quadtree path's six (the
-               hierarchical search's refine windows G 22 and 38, luma G 25
-               and 41, chroma pairs G 11 and 19). Then times from CUDA
-               events at the 720p call sites: kernel, plain version, an
-               empty kernel of the same grid (floor_ms), one PyTorch
-               indexing call for the same gather (library_ms), the any-G
-               kernel at the same G (generic_ms), and the bound computed
-               from the shapes
+               uint8 and int16 planes, at 736x1280 (B 32, S 16), at
+               768x1280 (B 64, S 16), at the small fixture clips' shapes
+               and at search 8; gather_win on real and random data with
+               planted out-of-range starts, from uint8 and int16 planes, at
+               every call site of every path at both sizes: the fixed-CU
+               path's luma window and chroma pair (one launch) at CU 32 (G
+               41, 19) and CU 64 (G 73, 35), and the quadtree path's refine
+               window of the hierarchical search, luma window and chroma
+               pair at CU 8 (G 14, 17, 7), 16 (22, 25, 11), 32 (38, 41, 19)
+               and 64 (70, 73, 35). Then times from CUDA graph replays at
+               the 720p call sites: kernel, plain version, an empty kernel
+               of the same grid (floor_ms), one PyTorch indexing call for
+               the same gather (library_ms), gather_win's generic (any-G)
+               kernel (generic_ms), and the bound computed from the shapes
+               and, for the gather, the starts: each distinct plane sample
+               that a window covers read once (windows overlap), each
+               window written once
   4. paths   — each main path through HomerEncoder(cfg).encode_frames on
                the default device, with the launch counts set to 0 just
-               before it and read just after:
-                 fastest_720p: FASTEST_COMPUTATION, search 16, on
+               before it and read just after (launches per P frame):
+                 fastest_720p: FASTEST, cu_size 32, search 16, on
                    synth_clip(1280, 720, 9): one IDR and a chunk of 8 P
-                   frames; me_sad 8 launches, gather_win 16;
-                 fast_720p: FAST_COMPUTATION, search 64 (the configuration
-                   bench.py times) on the same clip: split-RDO IDR, then a
-                   chunk of 8 quadtree P frames; gather_win 48 launches
-                   (six per P frame), me_sad none;
+                   frames; me_sad 1, gather_win 2;
+                 fast_720p: FAST, cu_size 32, search 64 (the configuration
+                   bench.py times), same clip; me_sad 0, gather_win 6;
+                 default_720p: EncoderConfig(width=1280, height=720, qp=32)
+                   (cu_size 64, FAST, search 16); me_sad 0, gather_win 6;
+                 full64_720p: FULL (8x8 inter CUs), cu_size 64, search 64:
+                   8 P frames from default_720p's IDR planes (the same IDR);
+                   me_sad 0, gather_win 12;
+                 fastest64_720p: FASTEST, cu_size 64, search 16; me_sad 1,
+                   gather_win 2;
                every AU's SHA-256 must equal tests/fixtures/
                torch_port_aus.json (written from the JAX package); the same
-               run with kernels=False must give identical AUs and launch
-               nothing; libde265 decode check where the library loads; the
-               128x96 fixture clips of both paths too
+               P frames with kernels=False must give identical AUs and
+               launch nothing; libde265 decode check where the library
+               loads; each path's small fixture clip too, with and without
+               the kernels
   5. timing  — after warm-up: 16 P frames end to end on the fixed-CU path,
-               8 on the quadtree path; a P chunk's device stage on each; the
-               IDR device stage of each, pass A and pass B apart for the
-               split-RDO IDR
+               8 on each quadtree path (CTU 32 and 64); a P chunk's device
+               stage on each; the IDR's device stage, warm (phase 4 coded
+               it once), and for a split-RDO IDR pass A timed alone (pass B
+               is the rest)
 
 The last three lines are the per-kernel JSON record, the card's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -49,6 +60,7 @@ power limit, and {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -200,6 +212,19 @@ def clamped_starts(plane, by, bx, G):
     return y0, x0
 
 
+def covered_samples(shape, y0, x0, G) -> int:
+    """How many samples of a plane of `shape` the G x G windows at the
+    clamped starts (y0, x0) cover together: windows of neighbouring blocks
+    overlap, and a sample that several of them hold need be read once."""
+    import torch
+    Hp, Wp = shape
+    d = torch.zeros((Hp + 1, Wp + 1), dtype=torch.int32, device=y0.device)
+    one = torch.ones(y0.shape, dtype=torch.int32, device=y0.device)
+    for dy, dx, sign in ((0, 0, 1), (0, G, -1), (G, 0, -1), (G, G, 1)):
+        d.index_put_((y0 + dy, x0 + dx), sign * one, accumulate=True)
+    return int((d.cumsum(0).cumsum(1)[:Hp, :Wp] > 0).sum())
+
+
 def library_gather(plane, y0, x0, G):
     """One PyTorch indexing call per plane that computes the gather from
     clamped starts (the yardstick library_ms; the port never calls it).
@@ -234,13 +259,14 @@ def check_me(dev, frames, H, W, B, S, label):
     return cases, worst
 
 
-def fast_gather_sites(dev, cur_frame, ref_frame, H, W, search, qp=32):
-    """The quadtree P stage's six gather call sites at one size, from the
+def fast_gather_sites(dev, cur_frame, ref_frame, H, W, search,
+                      sizes=(16, 32), qp=32):
+    """The quadtree P stage's gather call sites at one size, from the
     hierarchical search of `cur_frame` against `ref_frame` (plain versions):
-    {name: (planes, by, bx, G)}; per CU size S in (16, 32) the refine window
-    of the search (G = S + 6, starts from the pyramid picks), the luma
-    support window (G = S + 9) and the chroma pair (G = S/2 + 3), both with
-    starts from the integer MVs."""
+    {name: (planes, by, bx, G)}; per CU size S of `sizes` the refine window
+    of the search (G = S + 6, starts from the pyramid picks, or at S 8 from
+    the parent 16-block's MV), the luma support window (G = S + 9) and the
+    chroma pair (G = S/2 + 3), both with starts from the integer MVs."""
     import torch
 
     from homerhevc_tpu_torch.device import edge_pad
@@ -256,16 +282,22 @@ def fast_gather_sites(dev, cur_frame, ref_frame, H, W, search, qp=32):
                                       (PAD, PAD // 2, PAD // 2))]
     cur = torch.as_tensor(pad_plane(cur_frame[0], H, W), device=dev).to(i32)
     lam = torch.tensor(int(LAMBDA_ME_FX_P[qp]), dtype=i32, device=dev)
-    coarse = p_torch._me_hier_coarse(cur, planes[0], sizes=(16, 32),
+    hier = tuple(sorted(set(sizes) | ({16} if 8 in sizes else set())))
+    coarse = p_torch._me_hier_coarse(cur, planes[0], sizes=hier,
                                      search=search, lam=lam)
-    ints = p_torch._me_hier(cur, planes[0], sizes=(16, 32), search=search,
+    ints = p_torch._me_hier(cur, planes[0], sizes=hier, search=search,
                             lam=lam, kernels=False)
     sites = {}
-    for S in (16, 32):
+    for S in sizes:
         nbx = W // S
         bi = torch.arange((H // S) * nbx, device=dev, dtype=i32)
         r, c = bi // nbx, bi % nbx
-        cy, cx, _ = coarse[S]
+        if S == 8:
+            cy, cx = (t.repeat_interleave(2, 0).repeat_interleave(2, 1)
+                      .clamp(-search, search).reshape(-1)
+                      for t in ints[16][:2])
+        else:
+            cy, cx, _ = coarse[S]
         vy, vx = (t.reshape(-1) for t in ints[S][:2])
         S2 = S // 2
         sites[f"hier refine G={S + 6}"] = (
@@ -343,59 +375,86 @@ def check_gather(dev, sites, label):
     return worst
 
 
-def phase_kernels(dev, frames, small_frames):
-    """Kernel vs plain at the 720p call sites, the 128x96 fixture's shapes
-    and search 8; times and bounds at 720p. Returns per-kernel records."""
+def time_me(dev, cur, ref, mc, H, W, B, S):
+    """Times of me_sad at one call site: kernel, plain version, empty grid,
+    and the bound."""
+    import torch
+
+    from homerhevc_tpu_torch.ops import me
+    from homerhevc_tpu_torch.pipeline.p_torch import PAD
+
+    def stream():        # the current stream: a graph capture's own, inside
+        return torch.cuda.current_stream(dev).cuda_stream
+
+    nblocks = (H // B) * (W // B)
+    n = 2 * S + 1
+    diffs = nblocks * n * n * B * B
+    rate = DIFFS_PER_INSTRUCTION * INT_LANES_PER_SM * SMS * max_sm_hz()
+    nbytes = (cur.numel() * cur.element_size()
+              + ref.numel() * ref.element_size() + mc.numel() * 4
+              + 2 * nblocks * 4)
+    ops_ms = diffs / rate * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    t = dict(
+        site=f"{H}x{W} B={B} S={S}", B=B, nblocks=nblocks,
+        ms=cuda_ms(lambda: me.integer_me_cuda(cur, ref, mc, B=B, search=S,
+                                              pad=PAD), 50),
+        plain_ms=cuda_ms(lambda: me.integer_me_plain(cur, ref, mc, B=B,
+                                                     search=S, pad=PAD), 3),
+        floor_ms=cuda_ms(lambda: me.ME_SAD.launch_floor(H, W, B, S,
+                                                        stream()), 50),
+        bound_ms=max(ops_ms, bytes_ms),
+        bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+        library_ms=None)
+    log(f"  me_sad {t['site']}: kernel {t['ms']:.4f} ms, plain "
+        f"{t['plain_ms']:.4f} ms, empty grid {t['floor_ms']:.4f} ms; bound "
+        f"{ops_ms:.4f} ms by "
+        f"operations ({diffs:.3e} differences, {DIFFS_PER_INSTRUCTION} per "
+        f"instruction), {bytes_ms:.4f} ms by bytes ({nbytes} B)")
+    return t
+
+
+def phase_kernels(dev, frames, small_frames, small64_frames):
+    """Kernel vs plain at the 720p call sites of every path (CTU 32 at
+    736x1280, CTU 64 at 768x1280), the small fixture clips' shapes and
+    search 8; times and bounds at 720p. Returns per-kernel records."""
     import torch
 
     from homerhevc_tpu_torch.ops import gather, me
     from homerhevc_tpu_torch.pipeline.p_torch import PAD
 
     H, W, B, S = 736, 1280, 32, 16
+    H64 = 768
     # max_abs_err of a kernel: the largest difference over all its checks
     cases, me_err = check_me(dev, frames, H, W, B, S, "736x1280, B=32, S=16")
     small, err = check_me(dev, small_frames, 96, 128, B, S,
                           "96x128, B=32, S=16")
     me_err = max(me_err, err)
+    cases64, err = check_me(dev, frames, H64, W, 64, S, "768x1280, B=64, S=16")
+    me_err = max(me_err, err)
+    small64, err = check_me(dev, small64_frames, 128, 192, 64, S,
+                            "128x192, B=64, S=16")
+    me_err = max(me_err, err)
     # search 8, and other block sizes: the compile-time B=16 path and the
     # any-B kernel
     for fr, h, w, b, s in ((frames, H, W, B, 8), (small_frames, 96, 128, B, 8),
                            (small_frames, 96, 128, 16, 8),
-                           (small_frames, 96, 120, 24, 7)):
+                           (small_frames, 96, 120, 24, 7),
+                           (small64_frames, 128, 192, 64, 8)):
         me_err = max(me_err, check_me(dev, fr, h, w, b, s,
                                       f"{h}x{w}, B={b}, S={s}")[1])
 
-    cur, ref, mc = cases["real uint8"]
-    nblocks = (H // B) * (W // B)
-    n = 2 * S + 1
-    me_ms = cuda_ms(lambda: me.integer_me_cuda(cur, ref, mc, B=B, search=S,
-                                               pad=PAD), 50)
-    me_plain_ms = cuda_ms(lambda: me.integer_me_plain(cur, ref, mc, B=B,
-                                                      search=S, pad=PAD), 3)
-    def stream():        # the current stream: a graph capture's own, inside
-        return torch.cuda.current_stream(dev).cuda_stream
-
-    me_floor_ms = cuda_ms(lambda: me.ME_SAD.launch_floor(H, W, B, S,
-                                                         stream()), 50)
-    diffs = nblocks * n * n * B * B
-    rate = DIFFS_PER_INSTRUCTION * INT_LANES_PER_SM * SMS * max_sm_hz()
-    me_bytes = (cur.numel() * cur.element_size()
-                + ref.numel() * ref.element_size()
-                + mc.numel() * 4 + 2 * nblocks * 4)
-    me_ops_ms = diffs / rate * 1e3
-    me_bytes_ms = me_bytes / HBM_BYTES_PER_S * 1e3
-    log(f"  me_sad: kernel {me_ms:.4f} ms, plain {me_plain_ms:.4f} ms, "
-        f"empty grid {me_floor_ms:.4f} ms; bound {me_ops_ms:.4f} ms by "
-        f"operations ({diffs:.3e} differences, {DIFFS_PER_INSTRUCTION} per "
-        f"instruction), {me_bytes_ms:.4f} ms by bytes ({me_bytes} B)")
+    me_sites = [time_me(dev, *cases["real uint8"], H, W, B, S),
+                time_me(dev, *cases64["real uint8"], H64, W, 64, S)]
     records = {"me_sad": dict(
         name="me_sad", route="cuda", source=me.ME_SAD.source,
         replaces="homerhevc_tpu/ops/me_pallas.py:27", max_abs_err=me_err,
-        ms=me_ms, plain_ms=me_plain_ms,
-        bound_ms=max(me_ops_ms, me_bytes_ms),
-        bound_by="operations" if me_ops_ms >= me_bytes_ms else "bytes",
-        floor_ms=me_floor_ms, library_ms=None)}
+        **{k: me_sites[0][k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "floor_ms",
+                                       "library_ms")},
+        sites=me_sites)}
 
+    cur, ref, mc = cases["real uint8"]
     _, best = me.integer_me_plain(cur, ref, mc, B=B, search=S, pad=PAD)
     sites = gather_sites(dev, frames[0], best, H, W, B, S)
     gw_err = check_gather(dev, sites, "736x1280, fixed CU")
@@ -405,13 +464,33 @@ def phase_kernels(dev, frames, small_frames):
     gw_err = max(gw_err, check_gather(
         dev, gather_sites(dev, small_frames[0], best_s, 96, 128, B, S),
         "96x128, fixed CU"))
-    # the quadtree path's six sites, search 64 (frame 1 against frame 0)
-    fast_sites = fast_gather_sites(dev, frames[1], frames[0], H, W, 64)
-    gw_err = max(gw_err, check_gather(dev, fast_sites, "736x1280, quadtree"))
+    # the fixed-CU path at CU 64
+    cur, ref, mc = cases64["real uint8"]
+    _, best = me.integer_me_plain(cur, ref, mc, B=64, search=S, pad=PAD)
+    sites64 = gather_sites(dev, frames[0], best, H64, W, 64, S)
+    gw_err = max(gw_err, check_gather(dev, sites64, "768x1280, fixed CU 64"))
+    cur_s, ref_s, mc_s = small64["real uint8"]
+    _, best_s = me.integer_me_plain(cur_s, ref_s, mc_s, B=64, search=S,
+                                    pad=PAD)
     gw_err = max(gw_err, check_gather(
-        dev, fast_gather_sites(dev, small_frames[1], small_frames[0], 96,
-                               128, 64), "96x128, quadtree"))
-    sites.update(fast_sites)
+        dev, gather_sites(dev, small64_frames[0], best_s, 128, 192, 64, S),
+        "128x192, fixed CU 64"))
+    sites.update(sites64)
+    # the quadtree path's sites, search 64 (frame 1 against frame 0): CU 16
+    # and 32 at CTU 32, CU 8 and 64 at CTU 64
+    for h, w, fr, sizes, label in (
+            (H, W, frames, (16, 32), "736x1280, quadtree"),
+            (96, 128, small_frames, (16, 32), "96x128, quadtree"),
+            (H64, W, frames, (8, 64), "768x1280, quadtree CU 8 and 64"),
+            (128, 192, small64_frames, (8, 64),
+             "128x192, quadtree CU 8 and 64")):
+        fast_sites = fast_gather_sites(dev, fr[1], fr[0], h, w, 64, sizes)
+        gw_err = max(gw_err, check_gather(dev, fast_sites, label))
+        if h >= H:
+            sites.update(fast_sites)
+
+    def stream():        # the current stream: a graph capture's own, inside
+        return torch.cuda.current_stream(dev).cuda_stream
 
     def generic(plane, by, bx, G):
         """The any-G kernel at this site (a yardstick, not counted)."""
@@ -432,6 +511,11 @@ def phase_kernels(dev, frames, small_frames):
         nb = by.shape[0]
         by, bx = by.to(torch.int32).contiguous(), bx.to(torch.int32).contiguous()
         y0, x0 = clamped_starts(plane, by, bx, G)
+        first = plane[0] if isinstance(plane, tuple) else plane
+        # int16 samples: the distinct ones the windows cover, read once per
+        # plane; every window written once; the starts read once
+        nbytes = (nplanes * 2 * (covered_samples(first.shape, y0, x0, G)
+                                 + nb * G * G) + 2 * nb * 4)
         want = gather.gather_windows_plain(plane, by, bx, G)
         lib = torch.stack(library_gather(plane, y0, x0, G))
         if not torch.equal(lib.reshape(-1), want.reshape(-1)):
@@ -449,15 +533,14 @@ def phase_kernels(dev, frames, small_frames):
                 nb, nplanes, stream()), 100),
             library_ms=cuda_ms(lambda: library_gather(plane, y0, x0, G), 50),
             generic_ms=cuda_ms(lambda: generic(plane, by, bx, G), 100),
-            # every window read once and written once, and the starts
-            bound_ms=(2 * nplanes * nb * G * G * 2 + 2 * nb * 4)
-            / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+            bound_bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+            bound_by="bytes")
         times[name] = t
         log(f"  gather_win {name} (nb {nb}): kernel {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms, empty grid {t['floor_ms']:.4f} ms, "
             f"one indexing call per plane {t['library_ms']:.4f} ms, any-G "
             f"kernel {t['generic_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-            "by bytes")
+            f"by bytes ({nbytes} B)")
     keys = ("ms", "plain_ms", "floor_ms", "library_ms", "bound_ms")
     luma, chroma = times["luma G=41"], times["chroma pair G=19"]
     records["gather_win"] = dict(
@@ -469,23 +552,37 @@ def phase_kernels(dev, frames, small_frames):
     return records
 
 
-# gather_win launches per P frame: the fixed-CU stage gathers the luma
-# window and the chroma pair; the quadtree stage does so at CU 16 and at CU
-# 32, and above the dense-search threshold its hierarchical search gathers
-# one refine window per CU size
+# Launches per P frame. me_sad: one per fixed-CU P frame at search 16 (the
+# quadtree stage sweeps its dense window without it). gather_win: the
+# fixed-CU stage gathers the luma window and the chroma pair; the quadtree
+# stage does so at each CU size (16 and 32 at CTU 32, 16, 32 and 64 at CTU
+# 64, and 8 as well with FULL's 8x8 CUs), and above the dense-search
+# threshold its hierarchical search gathers one refine window per CU size.
+# A path with `seed` continues from another path's IDR planes: FULL codes
+# the same IDR as FAST (same intra settings and QP), so its 8 P frames are
+# compared with the fixture's without coding the 64-CTU IDR twice.
 PATHS = {
-    "fastest_720p": dict(run="720p", frames=9, me_sad=1, gather_win=2),
-    "fast_720p": dict(run="fast_720p", frames=9, me_sad=0, gather_win=6),
+    "fastest_720p": dict(run="720p", frames=9, me_sad=1, gather_win=2,
+                         small="small"),
+    "fast_720p": dict(run="fast_720p", frames=9, me_sad=0, gather_win=6,
+                      small="fast_small"),
+    # built as EncoderConfig(width=1280, height=720, qp=32): the defaults
+    "default_720p": dict(run="default_720p", frames=9, me_sad=0,
+                         gather_win=6, small="default_small", defaults=True),
+    "full64_720p": dict(run="full64_720p", frames=9, me_sad=0, gather_win=12,
+                        small="full64_small", seed="default_720p"),
+    "fastest64_720p": dict(run="fastest64_720p", frames=9, me_sad=1,
+                           gather_win=2, small="fastest64_small"),
 }
-SMALL_RUNS = {"fastest_720p": "small", "fast_720p": "fast_small"}
 
 
-def run_path(dev, name, fixture):
+def run_path(dev, name, fixture, seeds):
     """One main path at 720p through the session's entry points on the
     default device; returns its launch counts and the reference planes
-    behind the IDR (numpy), from which the comparison and timing sessions
-    continue (seed_reference) without coding the IDR again: no kernel runs
-    in an IDR, and the split-RDO IDR takes most of a minute."""
+    behind its IDR (numpy). The comparison and timing sessions continue
+    from those planes (seed_reference) without coding the IDR again here:
+    no kernel runs in an IDR, and the split-RDO IDR takes most of a minute.
+    A path with a `seed` starts from `seeds[seed]`."""
     import torch
 
     from homerhevc_tpu_torch.api import HomerEncoder
@@ -499,42 +596,73 @@ def run_path(dev, name, fixture):
     frames = fx.clip(path["run"])[:n]
     want = fixture[path["run"]]["aus"][:n]
     cfg = fx.run_config(path["run"])
+    if path.get("defaults"):
+        from homerhevc_tpu_torch.config import EncoderConfig
+        default = EncoderConfig(width=run["width"], height=run["height"],
+                                qp=32)
+        # the fixture's fixed fields add only frame-level pipelining, which
+        # changes no byte
+        if dataclasses.replace(default, frame_pipeline_depth=2) != cfg:
+            raise AssertionError(f"{name}: the fixture's configuration is "
+                                 "not EncoderConfig's defaults")
+        cfg = default
+    seed = path.get("seed")
+    if seed and want[0] != fixture[PATHS[seed]["run"]]["aus"][0]:
+        raise AssertionError(f"{name}: the fixture's IDR differs from "
+                             f"{seed}'s: cannot continue from its planes")
     kernels = (ME_SAD, GATHER_WIN)
     for k in kernels:
         k.launches = 0
-    t0 = time.perf_counter()
     enc = HomerEncoder(cfg)                  # no device given: the card
     if enc.device.type != "cuda":
         raise AssertionError(f"default device is {enc.device}, not the card")
-    aus = enc.encode_frames(frames[:1])
-    ref0 = tuple(p.cpu().numpy() for p in enc._ref)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if seed:
+        ref0 = seeds[seed]
+        enc.seed_reference(ref0, poc=1, last_idr=0)
+        aus = [None]
+        idr_s = None
+    else:
+        aus = enc.encode_frames(frames[:1])
+        ref0 = tuple(p.cpu().numpy() for p in enc._ref)
+        torch.cuda.synchronize()
+        idr_s = time.perf_counter() - t0
     aus += enc.encode_frames(frames[1:], chunk=run["chunk"])
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = {k.name: k.launches for k in kernels}
-    log(f"  {name}: {cfg.performance_mode.name}, search "
-        f"{cfg.me_search_range}, {n} frames through the kernels: "
-        f"{secs:.2f} s (first run, includes warm-up); launches {launches}")
+    idr_note = (f"; of it the first IDR through encode_frames, cold, "
+                f"{idr_s:.2f} s" if idr_s else "")
+    log(f"  {name}: {cfg.performance_mode.name}, cu_size {cfg.cu_size}, "
+        f"search {cfg.me_search_range}, {n} frames through the kernels"
+        f"{f' (P frames from {seed} IDR planes)' if seed else ''}: "
+        f"{secs:.2f} s (first run, includes warm-up{idr_note}); launches "
+        f"{launches}")
     n_p = n - 1
     expect = {k.name: path[k.name] * n_p for k in kernels}
     if launches != expect:
         raise AssertionError(f"{name}: launches {launches}, expected "
                              f"{expect} for {n_p} P frames")
-    got = fx.au_digest(aus)
-    bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
-    if len(got) != len(want) or bad:
+    got = fx.au_digest(aus[1:] if seed else aus)
+    want_c = want[1:] if seed else want
+    bad = [i for i, (a, b) in enumerate(zip(got, want_c)) if a != b]
+    if len(got) != len(want_c) or bad:
         raise AssertionError(f"{name}: AUs differ from the JAX fixture at "
                              f"{bad} (sizes {[g['len'] for g in got]})")
+    idr_note = "" if seed else f"; IDR {got[0]['len']} bytes"
     log(f"  {name}: AUs == JAX fixture ({len(got)} AUs, "
-        f"{sum(g['len'] for g in got)} bytes; IDR {got[0]['len']} bytes)")
+        f"{sum(g['len'] for g in got)} bytes{idr_note})")
 
-    decoded = fx.decode_check(aus, enc._ref[0].cpu().numpy()[:720, :1280])
-    if decoded is None:
-        log("  libde265 decode check: not run (libde265 does not load)")
-    elif not decoded:
-        raise AssertionError("libde265 decode != the port's recon")
-    else:
-        log("  libde265 decode check: ran, last frame == port recon")
+    if not seed:
+        decoded = fx.decode_check(aus,
+                                  enc._ref[0].cpu().numpy()[:720, :1280])
+        if decoded is None:
+            log("  libde265 decode check: not run (libde265 does not load)")
+        elif not decoded:
+            raise AssertionError("libde265 decode != the port's recon")
+        else:
+            log("  libde265 decode check: ran, last frame == port recon")
     enc.close()
 
     plain = HomerEncoder(cfg, device=dev, kernels=False)
@@ -549,19 +677,18 @@ def run_path(dev, name, fixture):
     log(f"  {name}: kernels=False run of the {n_p} P frames: AUs identical, "
         "nothing launched")
 
-    small = fixture[SMALL_RUNS[name]]
+    small_name = path["small"]
+    small = fixture[small_name]
     for use_kernels in (True, False):
-        enc = HomerEncoder(fx.run_config(SMALL_RUNS[name]), device=dev,
+        enc = HomerEncoder(fx.run_config(small_name), device=dev,
                            kernels=use_kernels)
-        s_aus = enc.encode_frames(fx.clip(SMALL_RUNS[name]),
-                                  chunk=small["chunk"])
+        s_aus = enc.encode_frames(fx.clip(small_name), chunk=small["chunk"])
         enc.close()
         if fx.au_digest(s_aus) != small["aus"]:
-            raise AssertionError(f"{SMALL_RUNS[name]}: 128x96 AUs differ "
-                                 "from the JAX fixture "
-                                 f"(kernels={use_kernels})")
-    log(f"  {SMALL_RUNS[name]}: 128x96 AUs == JAX fixture ({len(s_aus)} "
-        "AUs), with and without kernels")
+            raise AssertionError(f"{small_name}: AUs differ from the JAX "
+                                 f"fixture (kernels={use_kernels})")
+    log(f"  {small_name}: {small['width']}x{small['height']} AUs == JAX "
+        f"fixture ({len(s_aus)} AUs), with and without kernels")
     return launches, ref0
 
 
@@ -581,7 +708,9 @@ def synced_ms(fn, reps: int = 1) -> float:
 
 def phase_timing(dev, name, n_p: int, ref0, card: str):
     """End-to-end and device-stage times of one path at 720p; the sessions
-    continue from the planes `ref0` behind the IDR."""
+    continue from the planes `ref0` behind the IDR. The IDR's device stage
+    is timed warm (phase 4 coded it once), once: a split-RDO IDR takes a
+    minute or more. Pass A is then timed alone and pass B is the rest."""
     import numpy as np
     import torch
 
@@ -620,18 +749,19 @@ def phase_timing(dev, name, n_p: int, ref0, card: str):
                for p in enc2._pad_frame(*frames[0]))
     tu = enc.params.max_tr_depth_intra
     ms = synced_ms(lambda: intra_torch.encode_frame_intra(
-        *yp, B=32, qp=cfg.qp, sign_hiding=True, split_rdo=enc.intra_split,
-        tu_depth=tu))
-    line = f"  {name}: IDR device stage: {ms:.1f} ms"
+        *yp, B=enc.ctu, qp=cfg.qp, sign_hiding=True,
+        split_rdo=enc.intra_split, tu_depth=tu))
+    line = f"  {name}: IDR device stage (warm): {ms:.1f} ms"
     if enc.intra_split:
         qp_t = torch.tensor(cfg.qp, dtype=torch.int32, device=dev)
         from homerhevc_tpu_torch import tables
         lam = torch.as_tensor(tables.LAMBDA_FX, device=dev)[qp_t]
         ms_a = synced_ms(lambda: intra_torch._open_loop_maps(
             yp[0], B=32, qp=qp_t, lam_fx=lam, strong_smoothing=True,
-            tu_split=bool(tu)))
-        line += (f", of which pass A (open-loop decisions) {ms_a:.1f} ms "
-                 f"and pass B (closed-loop wavefront) {ms - ms_a:.1f} ms")
+            tu_split=bool(tu)), 2)
+        line += (f", of which pass A (open-loop decisions, timed alone) "
+                 f"{ms_a:.1f} ms and pass B (closed-loop wavefront) "
+                 f"{ms - ms_a:.1f} ms")
     log(line + f" on {card}")
     enc.close()
     enc2.close()
@@ -677,10 +807,13 @@ def main() -> int:
 
     frames = clip("720p")
     log("[3/5] kernels vs plain (exact equality):")
-    records = phase_kernels(dev, frames, clip("small"))
+    records = phase_kernels(dev, frames, clip("small"), clip("default_small"))
 
     log("[4/5] main paths at 1280x720:")
-    by_path = {name: run_path(dev, name, fixture) for name in PATHS}
+    by_path = {}
+    for name in PATHS:
+        by_path[name] = run_path(dev, name, fixture,
+                                 {p: r[1] for p, r in by_path.items()})
     for kernel, rec in records.items():
         rec["launches_by_path"] = {p: c[0][kernel]
                                    for p, c in by_path.items()}
@@ -689,8 +822,9 @@ def main() -> int:
             raise AssertionError(f"{kernel} was launched on no main path")
 
     log("[5/5] timing:")
-    phase_timing(dev, "fastest_720p", 16, by_path["fastest_720p"][1], card)
-    phase_timing(dev, "fast_720p", 8, by_path["fast_720p"][1], card)
+    for name, n_p in (("fastest_720p", 16), ("fast_720p", 8),
+                      ("default_720p", 8)):
+        phase_timing(dev, name, n_p, by_path[name][1], card)
 
     print(json.dumps({"kernels": list(records.values())}))
     print(card)

@@ -5,12 +5,13 @@
     enc.close()
 
 Port of homerhevc_tpu/api.py for the configurations this package supports
-(FASTEST, FASTER and FAST_COMPUTATION at cu_size 32, fixed QP, rd_mode
-FULL): IDR frames through the all-intra wavefront (CU = TU = 32 in FASTEST,
-the split-RDO quadtree with NxN and intra TU split otherwise), P frames
-through the fixed-CU device stage (FASTEST, FASTER) or the inter CU
-quadtree with hierarchical ME, inter TU split and intra-in-P (FAST), chunked
-K frames per dispatch with the reference planes kept on the device, and
+(every performance mode at cu_size 32 and 64, fixed QP, rd_mode FULL): IDR
+frames through the all-intra wavefront (CU = TU = 32 in FASTEST, the
+split-RDO quadtree with NxN and intra TU split otherwise; a 64-CTU codes its
+four 32-blocks in z-order), P frames through the fixed-CU device stage
+(FASTEST, FASTER) or the inter CU quadtree with hierarchical ME and inter TU
+split (FAST; FULL descends to 8x8 CUs; intra-in-P at CTU 32), chunked K
+frames per dispatch with the reference planes kept on the device, and
 host CABAC (this package's own libhenc, built with g++ at first use)
 overlapping device work on the next chunk. Every AU equals, byte
 for byte, what `homerhevc_tpu.api.HomerEncoder(cfg, backend="jax")` writes.
@@ -53,11 +54,13 @@ def _tree_decisions(depth_u, mv_u, nz_u, ctu_log2: int, n_cand: int = 5,
 
 
 def check_slice(c: EncoderConfig) -> None:
-    """Raise NotImplementedError for any setting outside the ported slice."""
+    """Raise NotImplementedError for any setting outside the ported slice:
+    cu_size 32 and 64 in every performance mode, fixed QP, rd_mode FULL,
+    IPPP, no WPP, one device, 8-bit. (The JAX package has no quadtree P
+    stage at cu_size 16: FAST and FULL fail there.)"""
     checks = (
-        (c.performance_mode == PerformanceMode.FULL_COMPUTATION,
-         f"performance_mode={c.performance_mode.name} (8x8 inter CUs)"),
-        (c.cu_size != 32, f"cu_size={c.cu_size}"),
+        (c.cu_size == 16, f"cu_size={c.cu_size} "
+                          f"({c.performance_mode.name})"),
         (c.gop_size >= 2, f"gop_size={c.gop_size} (B frames)"),
         (c.bitrate_mode != BitrateMode.FIXED_QP,
          f"bitrate_mode={c.bitrate_mode.name}"),
@@ -99,20 +102,28 @@ class HomerEncoder:
         self.fetch_recon = fetch_recon
         self.ctu = c.ctu_size
         self.ctu_log2 = self.ctu.bit_length() - 1
-        # FAST / FASTER: the IDR RD-searches the intra CU quadtree
+        # intra codes at most 32x32 CUs: a 64-CTU IDR holds four 32-blocks
+        # in z-order
+        self.intra_b = min(self.ctu, 32)
+        self.ctu64 = self.ctu == 64
+        # FULL / FAST / FASTER: the IDR RD-searches the intra CU quadtree
         self.intra_split = (c.performance_mode
                             != PerformanceMode.FASTEST_COMPUTATION)
-        # FAST: P frames RD-search the inter CU quadtree (CTU -> 16);
+        # FULL / FAST: P frames RD-search the inter CU quadtree (CTU -> 16);
         # FASTER / FASTEST: fixed CU = CTU grid
         self.inter_split = (c.performance_mode
                             <= PerformanceMode.FAST_COMPUTATION)
+        # FULL: the inter quadtree descends to 8x8 CUs
+        self.inter_cu8 = (c.performance_mode
+                          == PerformanceMode.FULL_COMPUTATION)
         self.pw = c.padded_width
         self.ph = c.padded_height
         self.params = headers.StreamParams(
             width=c.width, height=c.height,
             pad_right=self.pw - c.width, pad_bottom=self.ph - c.height,
             ctu_log2=self.ctu_log2,
-            min_cu_log2=3 if self.intra_split else self.ctu_log2,
+            min_cu_log2=(3 if self.intra_split
+                         else self.intra_b.bit_length() - 1),
             max_tu_log2=min(5, self.ctu_log2),
             # one residual-quadtree level, RD-searched on the device
             max_tr_depth_intra=int(self.intra_split
@@ -218,8 +229,9 @@ class HomerEncoder:
                 self.chunk_overflows += 1
                 lev = tuple(out[k].cpu().numpy()
                             for k in ("lev_y", "lev_u", "lev_v"))
+            # a 64-CTU's unit depths count from its 32-blocks
             maps = native_backend.maps_from_intra_units(
-                mode_u8, depth_u8, *lev,
+                mode_u8, depth_u8, *lev, depth_offset=int(self.ctu64),
                 part_units=(part_u8.astype(bool) if self.intra_split
                             else None),
                 tr_depth_units=(trd_u8 if tu_depth else None))
@@ -284,8 +296,8 @@ class HomerEncoder:
                     me_precision=int(c.motion_estimation_precision),
                     sign_hiding=c.sign_hiding,
                     tr_split=self.params.max_tr_depth_inter > 0,
-                    intra_in_p=self.ctu == 32, vis=(c.height, c.width),
-                    kernels=self.kernels)
+                    intra_in_p=self.ctu == 32, cu8=self.inter_cu8,
+                    vis=(c.height, c.width), kernels=self.kernels)
 
     def _tree_maps(self, depth_u, mv_u, nz_u, trd_u, intra_u, lev):
         """Host decisions and syntax maps of one tree P frame from its unit
@@ -447,7 +459,7 @@ class HomerEncoder:
         uh, uw = self.ph // 4, self.pw // 4
         for row_i, (fi, qp) in enumerate(zip(idxs, qps)):
             w = p_chunk.unpack_wire(wires_h[row_i], self.ph, self.pw, ctu,
-                                    cap)
+                                    cap, fine=self.inter_cu8)
             if c.reinit_gop_on_scene_change:
                 ms = float(w["sad"].astype(np.int64).mean())
                 if ms / (ctu * ctu) > SCENE_SAD_PER_PIXEL:

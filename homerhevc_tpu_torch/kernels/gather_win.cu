@@ -15,12 +15,13 @@
 // system is busy. What it really waits for is one chain of dependent
 // latencies: launch, the block's start (by, bx), the window's samples, the
 // stores. So the design shortens the chain rather than the byte count:
-//  * G is a template parameter for the sizes the P stages use (fixed-CU
-//    path: 41 luma, 19 chroma; quadtree path: also 25 and 11 at CU 16, and
-//    38 and 22 for the refine windows of the hierarchical search), so t / G
-//    is a multiply and a shift, the loops unroll and every load of a thread
-//    is in flight before its first store; any other G takes the generic
-//    kernel;
+//  * G is a template parameter for the sizes the P stages use where that
+//    beat the generic kernel on the card (CU 32: 41 luma, 19 chroma; CU 16:
+//    25 and 11; CU 64: 73 and 35; CU 8: 17 luma; the hierarchical search's
+//    refine windows 70, 38, 22 and 14), so t / G is a multiply and a shift,
+//    the loops unroll and every load of a thread is in flight before its
+//    first store; any other G takes the generic kernel (the CU-8 chroma pair,
+//    G 7, among them: 30,720 CTAs, as long as their empty grid either way);
 //  * one CTA per window and plane, all of them resident at once;
 //  * a thread per sample, G*G/256 samples per thread, 2-byte loads and
 //    stores, neighbouring threads on neighbouring samples.
@@ -124,6 +125,9 @@ int launch(const void* p0, const void* p1, const void* p2, const void* p3,
         GATHER_CASE(41) GATHER_CASE(19)      // CU 32: luma, chroma pair
         GATHER_CASE(25) GATHER_CASE(11)      // CU 16: luma, chroma pair
         GATHER_CASE(38) GATHER_CASE(22)      // hierarchical ME refine, 32 / 16
+        GATHER_CASE(73) GATHER_CASE(35)      // CU 64: luma, chroma pair
+        GATHER_CASE(70)                      // hierarchical ME refine, 64
+        GATHER_CASE(17) GATHER_CASE(14)      // CU 8: luma, refine
 #undef GATHER_CASE
     default: gather_generic_kernel<<<grid, kThreads, 0, st>>>(a);
     }

@@ -42,8 +42,10 @@
 //  * A thread's offsets are not visited in rising order, so every compare,
 //    in the thread and in the shuffle reduction, is the lexicographic
 //    (cost, offset) one: the first minimum wins, as in the reference.
-//  B 32 and 16 are compiled in; any other multiple of 4 takes a generic
-//  kernel with one group per work item and the shifts in the sweep.
+//  B 64, 32 and 16 are compiled in (at B 64 and S 16 the window and its
+//  pre-shifted copy take 52 KB of shared memory, past the 48 KB a launch
+//  gets without opting in); any other multiple of 4 takes a generic kernel
+//  with one group per work item and the shifts in the sweep.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -308,15 +310,23 @@ __global__ void __launch_bounds__(kMaxThreads) me_sad_generic_kernel(Args a) {
 __global__ void me_sad_floor_kernel() {}
 
 struct Config {
-    bool tiled;   // B 32 or 16: me_sad_kernel; else the generic kernel
+    bool tiled;   // B 64, 32 or 16: me_sad_kernel; else the generic kernel
     int pw;       // window row pitch in words (odd)
     int threads;
     size_t smem;
 };
 
+// Built with -DME_SAD_GENERIC_ONLY (tools/kernel_report.py does, to time the
+// tiles against it), every B takes the generic kernel.
+#ifdef ME_SAD_GENERIC_ONLY
+bool has_tile(int) { return false; }
+#else
+bool has_tile(int B) { return B == 64 || B == 32 || B == 16; }
+#endif
+
 Config config(int B, int S) {
     Config c;
-    c.tiled = B == 32 || B == 16;
+    c.tiled = has_tile(B);
     const int G = c.tiled ? kG : 1;
     const int n = 2 * S + 1, L = B + 2 * S;
     const int nchunk = ((n + 3) / 4 + G - 1) / G;
@@ -353,8 +363,9 @@ extern "C" int me_sad_launch(const void* cur, const void* ref,
            W, Wp, B, S, pad, c.pw, cur_u8, ref_u8};
     const dim3 grid(W / B, H / B);
     cudaStream_t st = (cudaStream_t)stream;
-    if (B == 32) return (int)run(me_sad_kernel<8>, a, grid, c, st);
-    if (B == 16) return (int)run(me_sad_kernel<4>, a, grid, c, st);
+    if (c.tiled && B == 64) return (int)run(me_sad_kernel<16>, a, grid, c, st);
+    if (c.tiled && B == 32) return (int)run(me_sad_kernel<8>, a, grid, c, st);
+    if (c.tiled && B == 16) return (int)run(me_sad_kernel<4>, a, grid, c, st);
     return (int)run(me_sad_generic_kernel, a, grid, c, st);
 }
 

@@ -240,12 +240,15 @@ def inter_bs_from_units(depth_u, mv_u, cbf_u, ctu_log2: int, trd_u=None,
     return bs_v, bs_h
 
 
-def inter_bs_from_blocks(mvs, cbf_blk, B: int):
-    """bs maps for an all-inter CU = PU = TU = B grid (B <= 32) from
-    per-block quarter-pel MVs (nby, nbx, 2) and luma cbf (nby, nbx)."""
-    if B > 32:
-        raise NotImplementedError("inter_bs_from_blocks: B > 32 (implicit "
-                                  "TU split) is not ported")
+def inter_bs_from_blocks(mvs, cbf_blk, B: int, qcbf=None):
+    """bs maps for an all-inter CU = PU = B grid from per-block quarter-pel
+    MVs (nby, nbx, 2) and luma cbf (nby, nbx). A 64-CU codes four 32-TBs:
+    pass their cbf `qcbf` (nby, nbx, 2, 2); CU edges then take the cbf of
+    the quadrants on either side, and the CU's inner TU edges get bS 1 from
+    cbf alone (the MV is one per CU)."""
+    if B > 32 and qcbf is None:
+        raise ValueError("inter_bs_from_blocks: B > 32 needs the per-TB cbf "
+                         "qcbf")
     nby, nbx = cbf_blk.shape
     dev = cbf_blk.device
     rv, rh = B // 4, B // 8
@@ -255,8 +258,27 @@ def inter_bs_from_blocks(mvs, cbf_blk, B: int):
     bs_h = torch.zeros((nby * rh, nbx * rv), dtype=I32, device=dev)
     col_idx = torch.arange(1, nbx, device=dev) * rh
     row_idx = torch.arange(1, nby, device=dev) * rh
-    bs1_v = ((cbf_blk[:, 1:] | cbf_blk[:, :-1]) | dmv_v).to(I32)
-    bs_v[:, col_idx] = bs1_v.repeat_interleave(rv, dim=0)
-    bs1_h = ((cbf_blk[1:, :] | cbf_blk[:-1, :]) | dmv_h).to(I32)
-    bs_h[row_idx, :] = bs1_h.repeat_interleave(rv, dim=1)
+    if qcbf is None:
+        bs1_v = ((cbf_blk[:, 1:] | cbf_blk[:, :-1]) | dmv_v).to(I32)
+        bs_v[:, col_idx] = bs1_v.repeat_interleave(rv, dim=0)
+        bs1_h = ((cbf_blk[1:, :] | cbf_blk[:-1, :]) | dmv_h).to(I32)
+        bs_h[row_idx, :] = bs1_h.repeat_interleave(rv, dim=1)
+        return bs_v, bs_h
+    q = qcbf.to(torch.bool)                              # (nby, nbx, 2, 2)
+    # CU edges, per half: the quadrants that touch the edge on either side
+    v_half = (q[:, :-1, :, 1] | q[:, 1:, :, 0]) | dmv_v[:, :, None]
+    bs_v[:, col_idx] = (v_half.permute(0, 2, 1).reshape(nby * 2, nbx - 1)
+                        .to(I32).repeat_interleave(rv // 2, dim=0))
+    h_half = (q[:-1, :, 1, :] | q[1:, :, 0, :]) | dmv_h[:, :, None]
+    bs_h[row_idx, :] = (h_half.reshape(nby - 1, nbx * 2).to(I32)
+                        .repeat_interleave(rv // 2, dim=1))
+    # the CU's inner TU edges, cbf only
+    v_mid = torch.stack([q[..., 0, 0] | q[..., 0, 1],
+                         q[..., 1, 0] | q[..., 1, 1]], 1)
+    bs_v[:, torch.arange(nbx, device=dev) * rh + rh // 2] = (
+        v_mid.reshape(nby * 2, nbx).to(I32).repeat_interleave(rv // 2, 0))
+    h_mid = torch.stack([q[..., 0, 0] | q[..., 1, 0],
+                         q[..., 0, 1] | q[..., 1, 1]], 2)
+    bs_h[torch.arange(nby, device=dev) * rh + rh // 2, :] = (
+        h_mid.reshape(nby, nbx * 2).to(I32).repeat_interleave(rv // 2, 1))
     return bs_v, bs_h

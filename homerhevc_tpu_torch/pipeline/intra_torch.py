@@ -2,8 +2,9 @@
 search, or the two-pass CU quadtree (split RDO) down to 8x8 luma with NxN
 leaves and one level of intra TU split.
 
-Port of homerhevc_tpu/pipeline/intra_jax.py (`encode_frame_intra` at CTU 32,
-rd_mode FULL, with and without `split_rdo`). The reference's `lax.fori_loop`
+Port of homerhevc_tpu/pipeline/intra_jax.py (`encode_frame_intra` at CTU 32
+and `encode_frame_intra_ctu64`, one function here, rd_mode FULL, with and
+without `split_rdo`). The reference's `lax.fori_loop`
 over block anti-diagonals (skew 2, the WPP dependency pattern) becomes a
 Python loop; every block on a diagonal is processed in one batch.
 
@@ -416,136 +417,158 @@ def unpack_intra_wire(wire, H: int, W: int):
             ((units >> 8) & 1), ((units >> 9) & 1), idx, vals)
 
 
-def _refs_for(bot, right, rs, x0, n: int, w: int):
-    """Neighbour samples of the lanes' blocks: top row from the CTU row
-    above (top-right replicates at the picture edge), left column from the
-    left block (below-left replicates its last sample), corner."""
-    rm1 = (rs - 1).clamp(min=0)
-    trow = bot[rm1]                                          # (N, w)
-    ar = torch.arange(2 * n, device=bot.device)
-    top = torch.gather(trow, 1, (x0[:, None] + ar).clamp(0, w - 1))
-    lcol = right[rs]                                         # (N, n)
-    left = torch.cat([lcol, lcol[:, n - 1:n].expand(-1, n)], dim=1)
-    corner = torch.gather(trow, 1, (x0 - 1).clamp(0, w - 1)[:, None])[:, 0]
-    return top, left, corner
-
-
 def encode_frame_intra(y_pad, u_pad, v_pad, *, B: int, qp,
                        strong_smoothing: bool = True,
                        sign_hiding: bool = False, split_rdo: bool = False,
                        tu_depth: int = 0):
-    """Encode one padded frame all-intra (rd_mode FULL).
+    """Encode one padded frame all-intra with B x B CTUs (rd_mode FULL): the
+    reference's `encode_frame_intra` at B <= 32 and its
+    `encode_frame_intra_ctu64` at B 64.
 
-    Without `split_rdo`: CU = TU = B, closed-loop 35-mode search per block
-    (the FASTEST_COMPUTATION IDR). With it: the CU quadtree down to 8x8 luma
-    (4x4 chroma) decided open-loop by pass A and applied closed-loop here,
-    with NxN leaves and, for `tu_depth` >= 1, one level of TU split.
-    Returns the reference's output dict: modes, unit maps, block levels,
-    uint8 recon planes and the compact wire."""
+    The wavefront runs over CTU anti-diagonals. The largest intra CU is 32:
+    a 64-CTU codes its four 32-blocks one after another in z-order inside
+    the lane, so each reads the reconstruction of the ones before it (the
+    top-left block's left references run down the left CTU's whole right
+    column, its bottom-right samples included; the bottom-right block has
+    no top-right neighbour). Without `split_rdo` a block is CU = TU,
+    closed-loop 35-mode search per block (the FASTEST_COMPUTATION IDR).
+    With it: the CU quadtree down to 8x8 luma (4x4 chroma) decided
+    open-loop by pass A at B 32 and applied closed-loop here, with NxN
+    leaves and, for `tu_depth` >= 1, one level of TU split; unit depths
+    count from the 32-blocks. Chroma follows the luma modes, U and V as one
+    batch. Returns the reference's output dict: modes of the top-level
+    blocks, unit maps, block levels, uint8 recon planes and the compact
+    wire."""
     H, W = y_pad.shape
     dev = y_pad.device
     nby, nbx = H // B, W // B
     B2 = B // 2
-    Bu = B // 4
+    cb = min(B, 32)                          # top-level coding block
+    cb2 = cb // 2
+    kids = ((0, 0),) if cb == B else _Z_CHILDREN
     qp = _qp_tensor(qp, dev)
     qp_c = tables.chroma_qp_t(qp)
-    lam_t = const(tables.LAMBDA_FX, dev)
-    lam = lam_t[qp]
+    lam = const(tables.LAMBDA_FX, dev)[qp]
 
     def blocks(p, s):
-        return (p.to(I32).reshape(nby, s, nbx, s).permute(0, 2, 1, 3))
+        return p.to(I32).reshape(nby, s, nbx, s).permute(0, 2, 1, 3)
 
-    orig_y, orig_u, orig_v = blocks(y_pad, B), blocks(u_pad, B2), \
-        blocks(v_pad, B2)
+    orig = {"y": blocks(y_pad, B), "u": blocks(u_pad, B2),
+            "v": blocks(v_pad, B2)}
 
     def z(*shape):
         return torch.zeros(shape, dtype=I32, device=dev)
 
     bot = {"y": z(nby, W), "u": z(nby, W // 2), "v": z(nby, W // 2)}
     right = {"y": z(nby, B), "u": z(nby, B2), "v": z(nby, B2)}
-    mode_b = z(nby, nbx)
     lev = {"y": z(nby, nbx, B, B), "u": z(nby, nbx, B2, B2),
            "v": z(nby, nbx, B2, B2)}
     rec = {k: torch.zeros_like(t) for k, t in lev.items()}
 
+    def per_ctu(m):                  # (H/4, W/4) -> (nby, nbx, B/4, B/4)
+        return m.reshape(nby, B // 4, nbx, B // 4).permute(0, 2, 1, 3)
+
     tu_on = bool(tu_depth) and split_rdo
     if split_rdo:
         mode_units, depth_units, part_units, trd_units = _open_loop_maps(
-            y_pad, B=B, qp=qp, lam_fx=lam, strong_smoothing=strong_smoothing,
-            tu_split=tu_on)
+            y_pad, B=cb, qp=qp, lam_fx=lam,
+            strong_smoothing=strong_smoothing, tu_split=tu_on)
         eff_depth, eff_nxn = _effective_tree(depth_units, part_units,
                                              trd_units, tu_on)
-
-        def per_block(m):                    # (H/4, W/4) -> (nby, nbx, Bu, Bu)
-            return m.reshape(nby, Bu, nbx, Bu).permute(0, 2, 1, 3)
-
-        mode_blk, depth_blk, nxn_blk = (per_block(m) for m in
+        mode_blk, depth_blk, nxn_blk = (per_ctu(m) for m in
                                         (mode_units, eff_depth, eff_nxn))
         # the one host copy of the decided tree: which nodes any lane codes
         depth_host = depth_blk.cpu().numpy()
         nxn_host = nxn_blk.cpu().numpy()
+    else:
+        mode_cb = z(nby, nbx, B // cb, B // cb)          # one mode per top-level block
 
+    two = lambda a: torch.cat([a, a])
     for d in range(nbx + 2 * (nby - 1)):
-        # lanes: block rows r with 0 <= c = d - 2r < nbx
+        # lanes: CTU rows r with 0 <= c = d - 2r < nbx
         r_lo = max(0, (d - nbx + 2) // 2)
         r_hi = min(nby - 1, d // 2)
         rs = torch.arange(r_lo, r_hi + 1, device=dev)
         cs = d - 2 * rs
+        rs_h = np.arange(r_lo, r_hi + 1)
+        cs_h = d - 2 * rs_h
+        nl = r_hi - r_lo + 1
         has_top = rs > 0
         has_left = cs > 0
-        nl = r_hi - r_lo + 1
+        rm1 = (rs - 1).clamp(min=0)
         x0 = cs * B
         cx0 = cs * B2
-        top, left, corner = _refs_for(bot["y"], right["y"], rs, x0, B, W)
+        act = np.ones((nl,), bool)
 
+        # ---- luma: the top-level blocks of the CTU in z-order ----
+        trow, lcol = bot["y"][rm1], right["y"][rs]
+        corner = torch.gather(trow, 1, (x0 - 1).clamp(0, W - 1)[:, None])[:, 0]
+        o = orig["y"][rs, cs]
+        lev_l = torch.zeros_like(o)
+        rec_l = torch.zeros_like(o)
         if split_rdo:
-            rs_h = np.arange(r_lo, r_hi + 1)
-            cs_h = d - 2 * rs_h
-            rm1 = (rs - 1).clamp(min=0)
-            act = np.ones((nl,), bool)
             tree = _Followed(mode_blk[rs, cs], depth_blk[rs, cs],
                              nxn_blk[rs, cs], depth_host[rs_h, cs_h],
                              nxn_host[rs_h, cs_h])
-            out = {"y": _follow_unit(
-                orig_y[rs, cs], (top, left, corner, has_left, has_top),
-                (bot["y"][rm1], right["y"][rs], x0), tree, 0, 0, act, size=B,
-                depth=0, min_size=8, c_idx=0, qp=qp, sign_hiding=sign_hiding,
-                strong_smoothing=strong_smoothing, W=W)}
-            # chroma follows the luma quadtree with the luma modes, U and V
-            # as one batch of 2 * nl lanes
-            refs_c = [_refs_for(bot[k], right[k], rs, cx0, B2, W // 2)
-                      for k in ("u", "v")]
-            t, lft, co = (torch.cat([a, b]) for a, b in zip(*refs_c))
-            two = lambda a: torch.cat([a, a])
+        for hx, hy in kids:
+            cx, cy = hx * cb, hy * cb
+            refs = _child_refs(trow, lcol, corner, rec_l, cx, cy, cb,
+                               has_left, has_top, x0, W)
+            oc = o[:, cy:cy + cb, cx:cx + cb]
+            if split_rdo:
+                lv, rc = _follow_unit(
+                    oc, refs, _child_aux(trow, lcol, rec_l, cx, cy, cb, x0, B),
+                    tree, cy // 4, cx // 4, act, size=cb, depth=0,
+                    min_size=8, c_idx=0, qp=qp, sign_hiding=sign_hiding,
+                    strong_smoothing=strong_smoothing, W=W)
+            else:
+                lv35, rc35, cost = encode_block_all_modes(
+                    oc, *refs, size=cb, c_idx=0, qp=qp, lam_fx=lam,
+                    strong_smoothing=strong_smoothing,
+                    sign_hiding=sign_hiding)
+                mi = first_argmin(cost, 1)
+                lanes = torch.arange(nl, device=dev)
+                lv, rc = lv35[lanes, mi], rc35[lanes, mi]
+                mode_cb[rs, cs, hy, hx] = mi.to(I32)
+            lev_l[:, cy:cy + cb, cx:cx + cb] = lv
+            rec_l[:, cy:cy + cb, cx:cx + cb] = rc
+        out = {"y": (lev_l, rec_l)}
+
+        # ---- chroma: the same blocks at half size following the luma
+        # modes, U and V as one batch of 2 * nl lanes ----
+        if split_rdo:
             tree_c = _Followed(
                 two(tree.mode[:, ::2, ::2]), two(tree.depth[:, ::2, ::2]),
                 None, np.concatenate([tree.depth_h[:, ::2, ::2]] * 2), None)
-            lv_c, rc_c = _follow_unit(
-                torch.cat([orig_u[rs, cs], orig_v[rs, cs]]),
-                (t, lft, co, two(has_left), two(has_top)),
-                (torch.cat([bot["u"][rm1], bot["v"][rm1]]),
-                 torch.cat([right["u"][rs], right["v"][rs]]), two(cx0)),
-                tree_c, 0, 0, np.ones((2 * nl,), bool), size=B2, depth=0,
-                min_size=4, c_idx=1, qp=qp_c, sign_hiding=sign_hiding,
-                strong_smoothing=False, W=W // 2)
-            out["u"] = (lv_c[:nl], rc_c[:nl])
-            out["v"] = (lv_c[nl:], rc_c[nl:])
         else:
-            lv35, rc35, cost = encode_block_all_modes(
-                orig_y[rs, cs], top, left, corner, has_left, has_top, size=B,
-                c_idx=0, qp=qp, lam_fx=lam,
-                strong_smoothing=strong_smoothing, sign_hiding=sign_hiding)
-            mi = first_argmin(cost, 1)
-            lanes = torch.arange(nl, device=dev)
-            out = {"y": (lv35[lanes, mi], rc35[lanes, mi])}
-            for key, plane_o, c_idx in (("u", orig_u, 1), ("v", orig_v, 2)):
-                t, lft, co = _refs_for(bot[key], right[key], rs, cx0, B2,
-                                       W // 2)
-                out[key] = encode_block_one_mode(
-                    plane_o[rs, cs], t, lft, co, has_left, has_top, mi,
-                    size=B2, c_idx=c_idx, qp=qp_c, strong_smoothing=False,
-                    sign_hiding=sign_hiding)
-            mode_b[rs, cs] = mi.to(I32)
+            k = cb2 // 4                     # chroma units per block side
+            m_u = mode_cb[rs, cs].repeat_interleave(k, 1).repeat_interleave(
+                k, 2)
+            tree_c = _Followed(two(m_u), two(torch.zeros_like(m_u)), None,
+                               np.zeros((2 * nl,) + m_u.shape[1:], np.int32),
+                               None)
+        trow_c = torch.cat([bot["u"][rm1], bot["v"][rm1]])
+        lcol_c = torch.cat([right["u"][rs], right["v"][rs]])
+        x0_c = two(cx0)
+        corner_c = torch.gather(
+            trow_c, 1, (x0_c - 1).clamp(0, W // 2 - 1)[:, None])[:, 0]
+        o_c = torch.cat([orig["u"][rs, cs], orig["v"][rs, cs]])
+        lev_c = torch.zeros_like(o_c)
+        rec_c = torch.zeros_like(o_c)
+        for hx, hy in kids:
+            cx, cy = hx * cb2, hy * cb2
+            refs = _child_refs(trow_c, lcol_c, corner_c, rec_c, cx, cy, cb2,
+                               two(has_left), two(has_top), x0_c, W // 2)
+            lv, rc = _follow_unit(
+                o_c[:, cy:cy + cb2, cx:cx + cb2], refs,
+                _child_aux(trow_c, lcol_c, rec_c, cx, cy, cb2, x0_c, B2),
+                tree_c, cy // 4, cx // 4, np.ones((2 * nl,), bool), size=cb2,
+                depth=0, min_size=4 if split_rdo else cb2, c_idx=1, qp=qp_c,
+                sign_hiding=sign_hiding, strong_smoothing=False, W=W // 2)
+            lev_c[:, cy:cy + cb2, cx:cx + cb2] = lv
+            rec_c[:, cy:cy + cb2, cx:cx + cb2] = rc
+        out["u"] = (lev_c[:nl], rec_c[:nl])
+        out["v"] = (lev_c[nl:], rec_c[nl:])
 
         for key, n, xs in (("y", B, x0), ("u", B2, cx0), ("v", B2, cx0)):
             lv, rc = out[key]
@@ -556,14 +579,15 @@ def encode_frame_intra(y_pad, u_pad, v_pad, *, B: int, qp,
             right[key][rs] = rc[:, :, -1]
 
     if split_rdo:
-        mode_b = mode_units[::Bu, ::Bu]
+        modes = mode_units[::cb // 4, ::cb // 4]
         part_units = part_units.to(I32)
     else:
-        mode_units = _upu(mode_b, B)
+        modes = to_plane(mode_cb)
+        mode_units = _upu(modes, cb)
         depth_units = part_units = trd_units = torch.zeros_like(mode_units)
     u8 = torch.uint8
-    out = dict(
-        modes=mode_b,
+    res = dict(
+        modes=modes,
         mode_units=mode_units, depth_units=depth_units,
         part_units=part_units, trd_units=trd_units,
         lev_y=lev["y"], lev_u=lev["u"], lev_v=lev["v"],
@@ -571,7 +595,7 @@ def encode_frame_intra(y_pad, u_pad, v_pad, *, B: int, qp,
         recon_u=to_plane(rec["u"]).to(u8),
         recon_v=to_plane(rec["v"]).to(u8),
     )
-    out["wire"] = pack_intra_wire(
+    res["wire"] = pack_intra_wire(
         to_plane(lev["y"]), to_plane(lev["u"]), to_plane(lev["v"]),
         mode_units, depth_units, part_units, trd_units)
-    return out
+    return res

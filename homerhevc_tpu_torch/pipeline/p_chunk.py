@@ -2,15 +2,16 @@
 on the device.
 
 Port of homerhevc_tpu/pipeline/p_chunk.py for the fixed-CU path
-(`tree=False`) and the CU-quadtree path (`tree=True`, CTU 32, fixed QP).
+(`tree=False`) and the CU-quadtree path (`tree=True`, CTU 32 or 64, down to
+8x8 CUs with `cu8`), at a fixed QP.
 The reference's `lax.scan` over K frames becomes a Python loop of
 batched tensor ops whose carry — the deblocked, SAO-filtered reference
 planes — never leaves the device. Each frame yields one compacted int32
 wire row, word-identical to the reference's, so the host unpack below (a
 copy of the reference's numpy helpers, whose module imports jax) reads it
-unchanged: per-16-block decisions (CU depth, TU split, intra flag, MV or
-intra mode), per-CTU SAD (scene-cut signal), packed SAO
-parameters, and the nonzero 4x4 coefficient sub-blocks as int8 with an
+unchanged: per-16-block (per-8-block with 8x8 CUs) decisions (CU depth, TU
+split, intra flag, MV or intra mode), per-CTU SAD (scene-cut signal), packed
+SAO parameters, and the nonzero 4x4 coefficient sub-blocks as int8 with an
 int16 escape list, under a fixed capacity.
 
 The fixed-capacity compaction (`jnp.nonzero(size=cap, fill_value=...)` in
@@ -80,9 +81,10 @@ def _sao_device(cur, rec, ctu: int, qp, qp_c):
 
 
 def _frame_wire(depth_u, trd_u, intra_u, mv_u, sad, pp, lev_planes,
-                cap: int):
+                cap: int, fine: bool = False):
     """One frame's compacted wire row (int32) from the 4x4-unit decision
-    maps (read at stride 4: one word per 16x16 block)."""
+    maps (read at stride 4: one word per 16x16 block; with `fine`, at
+    stride 2: one word per 8x8 block, for 8x8 inter CUs)."""
     L4 = sum(p.numel() for p in lev_planes) // 16
     lv4 = torch.cat([to4(p) for p in lev_planes])                # (L4, 16)
     nzm = (lv4 != 0).any(dim=1)
@@ -98,11 +100,12 @@ def _frame_wire(depth_u, trd_u, intra_u, mv_u, sad, pp, lev_planes,
     evals = vals[erow.clamp(max=cap - 1)]
     evals = torch.where((erow < cap)[:, None], evals, 0).to(torch.int16)
     evals32 = evals.view(torch.int32)                             # (cap2, 8)
-    # 16-granular decision grid: bits 0-1 depth, 2 TU split, 3 intra, then
-    # the two MV components (the intra mode rides the x slot)
-    mv16 = mv_u[::4, ::4].to(I32)
-    dec16 = ((depth_u[::4, ::4] & 3) | ((trd_u[::4, ::4] & 1) << 2)
-             | ((intra_u[::4, ::4] & 1) << 3)
+    # 16- (or 8-) granular decision grid: bits 0-1 depth, 2 TU split, 3
+    # intra, then the two MV components (the intra mode rides the x slot)
+    st = 2 if fine else 4
+    mv16 = mv_u[::st, ::st].to(I32)
+    dec16 = ((depth_u[::st, ::st] & 3) | ((trd_u[::st, ::st] & 1) << 2)
+             | ((intra_u[::st, ::st] & 1) << 3)
              | ((mv16[..., 0] + 2048) << 4) | ((mv16[..., 1] + 2048) << 16))
     return torch.cat([
         cnt.reshape(1), cnt2.reshape(1), dec16.reshape(-1).to(I32),
@@ -114,12 +117,13 @@ def p_chunk_device(ys, us, vs, ref_y, ref_u, ref_v, qps, *, ctu: int,
                    search: int, me_precision: int, sign_hiding: bool,
                    deblock: bool, sao: bool, cap: int, tree: bool = False,
                    tr_split: bool = False, intra_in_p: bool = False,
-                   vis=None, kernels: bool = True):
+                   cu8: bool = False, vis=None, kernels: bool = True):
     """Encode K consecutive P frames on the device.
 
     ys (K, H, W) uint8 etc., ref_* uint8 planes, qps (K,) int32 on the
     device. `tree` selects the CU-quadtree stage (with `tr_split`,
-    `intra_in_p` and the visible size `vis`) over the fixed-CU one. Returns
+    `intra_in_p`, 8x8 CUs `cu8` and the visible size `vis`) over the
+    fixed-CU one. Returns
     (wires (K, L) int32, denses (K, D) int16 dense level planes for the
     capacity-overflow fallback, final reference planes)."""
     K, H, W = ys.shape
@@ -136,7 +140,7 @@ def p_chunk_device(ys, us, vs, ref_y, ref_u, ref_v, qps, *, ctu: int,
             res = p_torch._p_stage_tree(
                 y, u, v, ryp, rup, rvp, ctu=ctu, qp=qp, search=search,
                 me_precision=me_precision, sign_hiding=sign_hiding,
-                tr_split=tr_split, intra_in_p=intra_in_p, vis=vis,
+                tr_split=tr_split, intra_in_p=intra_in_p, cu8=cu8, vis=vis,
                 kernels=kernels)
             depth_u, trd_u = res["depth_u"], res["trd_u"]
             intra_u, mv_u = res["pred_intra_u"], res["mv_u"]
@@ -166,7 +170,7 @@ def p_chunk_device(ys, us, vs, ref_y, ref_u, ref_v, qps, *, ctu: int,
             pp = torch.zeros((3, H // ctu, W // ctu), dtype=I32, device=dev)
         ry8, ru8, rv8 = (p.to(torch.uint8) for p in rec)
         wires.append(_frame_wire(depth_u, trd_u, intra_u, mv_u, res["sad"],
-                                 pp, lev, cap))
+                                 pp, lev, cap, fine=cu8))
         denses.append(torch.cat([p.to(torch.int16).reshape(-1)
                                  for p in lev]))
     return torch.stack(wires), torch.stack(denses), ry8, ru8, rv8
@@ -192,9 +196,11 @@ def unpk_params(w):
     return par, ((w >> 25) & 1).astype(bool), ((w >> 26) & 1).astype(bool)
 
 
-def wire_layout(H: int, W: int, ctu: int, cap: int):
-    """Static per-frame wire layout: list of (name, shape) in int32 words."""
-    hg, wg = H // 16, W // 16
+def wire_layout(H: int, W: int, ctu: int, cap: int, fine: bool = False):
+    """Static per-frame wire layout: list of (name, shape) in int32 words
+    (the decision grid per 16x16 block, per 8x8 block when `fine`)."""
+    g = 8 if fine else 16
+    hg, wg = H // g, W // g
     nby, nbx = H // ctu, W // ctu
     cap2 = max(64, cap // 8)
     return [
@@ -210,12 +216,15 @@ def wire_layout(H: int, W: int, ctu: int, cap: int):
     ]
 
 
-def unpack_wire(row: np.ndarray, H: int, W: int, ctu: int, cap: int):
+def unpack_wire(row: np.ndarray, H: int, W: int, ctu: int, cap: int,
+                fine: bool = False):
     """Host-side wire row -> dict of numpy arrays: depth16, mv16, sad, SAO
-    words, idx, vals (int16, escapes re-widened), cnt."""
+    words, idx, vals (int16, escapes re-widened), cnt. With `fine` the
+    decision grids are 8-granular (the keys keep their *16 names; the
+    caller upsamples by `gran` to 4x4 units)."""
     out = {}
     o = 0
-    for name, shape in wire_layout(H, W, ctu, cap):
+    for name, shape in wire_layout(H, W, ctu, cap, fine):
         n = int(np.prod(shape))
         out[name] = row[o:o + n].reshape(shape)
         o += n
@@ -234,7 +243,7 @@ def unpack_wire(row: np.ndarray, H: int, W: int, ctu: int, cap: int):
     out["intra16"] = ((d >> 3) & 1).astype(np.int32)
     out["mv16"] = np.stack([((d >> 4) & 4095) - 2048,
                             ((d >> 16) & 4095) - 2048], -1).astype(np.int32)
-    out["gran"] = 4
+    out["gran"] = 2 if fine else 4
     return out
 
 

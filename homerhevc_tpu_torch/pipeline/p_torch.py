@@ -1,12 +1,12 @@
 """P-frame pipeline: frame-batched integer ME, quarter-pel refinement,
 merge/skip RD, MC and residual coding, on a fixed CU = B grid or as an inter
-CU quadtree (CTU 32 -> 16) with the inter residual quadtree and the per-CU
-intra fallback.
+CU quadtree (CTU 32 or 64 -> 16, or -> 8) with the inter residual quadtree
+and, at CTU 32, the per-CU intra fallback.
 
-Port of homerhevc_tpu/pipeline/p_jax.py for CTU 32 and a fixed QP:
-`_p_stage` (dense branch), `_me_hier` (sizes 16 and 32), `_level_encode`
-(S 16 and 32, `vis`, `tr_split`; no row QPs), `_p_stage_tail`,
-`_p_stage_tree`, `p_frame_device`, `p_frame_tree_device`,
+Port of homerhevc_tpu/pipeline/p_jax.py for CTU 32 and 64 at a fixed QP:
+`_p_stage` (dense branch), `_me_hier` (sizes 8 to 64), `_level_encode`
+(S 8 to 64, `vis`, `tr_split`; no row QPs), `_p_stage_tail`,
+`_p_stage_tree` (with `cu8`), `p_frame_device`, `p_frame_tree_device`,
 `deblock_intra_device`. Inter prediction reads only the previous decoded
 frame, so every block is independent and the whole frame runs as batched
 tensor ops with the block axis first: (nb, ...). Two steps go through
@@ -119,7 +119,9 @@ def _level_encode(cur, u_pad, v_pad, ry, ru, rv, ivy, ivx, *, S, qp, qp_c,
                   lam, search, me_precision, sign_hiding, tr_split=False,
                   vis=None, kernels: bool = True):
     """Subpel refinement + merge/skip RD + MC + residual coding for every
-    S-sized block (S in {16, 32}). Returns per-block levels / recon and MVs,
+    S-sized block (S in {8, 16, 32, 64}; a 64-block codes its residual as
+    four 32-TBs, its chroma as four 16-TBs, each with its own skip-vs-code
+    RD). Returns per-block levels / recon and MVs,
     the integer RD cost of each block as a quadtree node (luma SSD + lambda
     * (level-bit estimate + MV bits)) and, with `tr_split` at S 32, the
     per-CU choice `trd` of coding the residual as four half-size TBs.
@@ -131,8 +133,6 @@ def _level_encode(cur, u_pad, v_pad, ry, ru, rv, ivy, ivx, *, S, qp, qp_c,
     S2 = S // 2
     G = S + 2                                  # qpel grid spatial extent
     log2 = S.bit_length() - 1
-    if S not in (16, 32):
-        raise NotImplementedError(f"CU size {S} (only 16 and 32 are ported)")
     dev = cur.device
     bits_q = const(_bits_tab(4 * search + 16), dev)
     lam_full_t = const(tables.LAMBDA_FX_P, dev)
@@ -343,9 +343,11 @@ def _level_encode(cur, u_pad, v_pad, ry, ru, rv, ivy, ivx, *, S, qp, qp_c,
         blk_u = torch.where(m_c, blk_u, pred_u)
         blk_v = torch.where(m_c, blk_v, pred_v)
 
+    # a 64-CU's chroma TBs are 16: the luma TB (32) halved
+    cmax_tb = 4 if log2 == 6 else 5
     lev_y, rec_y = code(blk, pred_y, qp, log2)
-    lev_u, rec_u = code(blk_u, pred_u, qp_c, log2 - 1)
-    lev_v, rec_v = code(blk_v, pred_v, qp_c, log2 - 1)
+    lev_u, rec_u = code(blk_u, pred_u, qp_c, log2 - 1, cmax_tb)
+    lev_v, rec_v = code(blk_v, pred_v, qp_c, log2 - 1, cmax_tb)
     lamf = lam_full_t[qp]
     trd = torch.zeros((nb,), dtype=I32, device=dev)
     if tr_split and S == 32:
@@ -444,12 +446,6 @@ def _pool2(g: torch.Tensor) -> torch.Tensor:
     return block_sum(g, 2, 2)
 
 
-def _check_hier_sizes(sizes) -> None:
-    if any(s not in (16, 32) for s in sizes):
-        raise NotImplementedError(f"_me_hier sizes {tuple(sizes)} (only 16 "
-                                  "and 32 are ported)")
-
-
 def _me_hier_coarse(cur, ry, *, sizes, search, lam):
     """Coarse level of the hierarchical ME: {S: (cy, cx, zS)}, the pyramid
     pick of every S-block in full-pel (flat, raster order) and the 49
@@ -458,7 +454,6 @@ def _me_hier_coarse(cur, ry, *, sizes, search, lam):
     A dense sweep of +-search/4 offsets on 4:1 box-summed planes gives
     per-16 SAD grids; they and the zero-anchor grids are pooled up to each
     size; the pick is the first minimum with the coarse MV cost, dy-major."""
-    _check_hier_sizes(sizes)
     dev = cur.device
     R4 = search // 4
     n4 = 2 * R4 + 1
@@ -471,7 +466,7 @@ def _me_hier_coarse(cur, ry, *, sizes, search, lam):
     mvcost4 = (lam * const(_mv_bits_grid4(R4), dev)) >> 8
     out = {}
     S = 16
-    for size in sorted(sizes):
+    for size in sorted(s for s in sizes if s >= 16):
         while S < size:                                 # pool up to `size`
             gS, zS = _pool2(gS), _pool2(zS)
             S *= 2
@@ -483,13 +478,16 @@ def _me_hier_coarse(cur, ry, *, sizes, search, lam):
 
 def _me_hier(cur, ry, *, sizes, search, lam, kernels: bool = True):
     """Hierarchical wide-window integer ME (search > HIER_THRESHOLD), the
-    reference's `_me_hier` for block sizes 16 and 32.
+    reference's `_me_hier` for block sizes 8, 16, 32 and 64.
 
-      coarse: `_me_hier_coarse`;
+      coarse: `_me_hier_coarse` (sizes 16 and up);
       refine: full-resolution +-3 around BOTH the zero MV (49 costs from
               static shifted-plane grids, shared across sizes by pooling)
               and the coarse pick (one per-block window gather per size).
-              98 ordered candidates, zero anchor first, first minimum.
+              98 ordered candidates, zero anchor first, first minimum;
+      8:      each 8-block is seeded from its parent 16-block's refined MV
+              (clipped to +-search) and refined the same way against its
+              own zero-anchor grids (sizes with 8 hold 16 as well).
 
     Returns {S: (ivy, ivx, icost)} (nby, nbx) int32 with |mv| <= search + 3.
     """
@@ -532,7 +530,17 @@ def _me_hier(cur, ry, *, sizes, search, lam, kernels: bool = True):
         ivx = torch.where(is_pyr, vx + dx, dx).reshape(nby, nbx)
         return ivy, ivx, icost.reshape(nby, nbx).to(I32)
 
-    return {size: refine(size, *coarse[size]) for size in sorted(sizes)}
+    out = {size: refine(size, *coarse[size]) for size in sorted(coarse)}
+    if 8 in sizes:
+        ivy16, ivx16, _ = out[16]
+
+        def seed(v):
+            return (v.repeat_interleave(2, 0).repeat_interleave(2, 1)
+                    .clamp(-search, search).reshape(-1))
+
+        z8 = sad_grids(cur, ry, S=8, search=3, pad=PAD)
+        out[8] = refine(8, seed(ivy16), seed(ivx16), z8)
+    return out
 
 
 def worst_n(cost: torch.Tensor, n_sel: int) -> torch.Tensor:
@@ -672,18 +680,21 @@ def _intra_in_p(cur, u_pad, v_pad, rec, c32eff, *, qp, lamf, sign_hiding):
 def _p_stage_tree(y_pad, u_pad, v_pad, ry, ru, rv, *, ctu: int, qp,
                   search: int, me_precision: int, sign_hiding: bool,
                   tr_split: bool = False, intra_in_p: bool = False,
-                  vis=None, kernels: bool = True):
-    """Inter CU quadtree P stage (CTU 32 -> 16, PU = TU = CU unless
-    `tr_split`), the reference's `_p_stage_tree` for ctu 32 at a fixed QP.
+                  cu8: bool = False, vis=None, kernels: bool = True):
+    """Inter CU quadtree P stage (CTU 32 or 64 -> 16, or -> 8 with `cu8`;
+    PU = TU = CU unless `tr_split`), the reference's `_p_stage_tree` at a
+    fixed QP.
 
-    One 16-granular integer search (hierarchical above HIER_THRESHOLD, else
-    the dense SAD grid sweep with the 32 grids pooled from the 16 grids);
-    both levels are subpel-refined and residual-coded batched, and the split
-    choice is a dense masked select over the node costs. Returns the unit
-    maps (4x4 units), the selected level planes and reconstruction, and the
-    one-buffer host wire of the per-frame path."""
-    if ctu != 32:
-        raise NotImplementedError(f"tree P stage at ctu={ctu} (only 32 is "
+    One integer search for all levels (hierarchical above HIER_THRESHOLD,
+    else the dense SAD grid sweep at the finest level with the parents'
+    grids pooled from it); every level is subpel-refined and residual-coded
+    batched, and the split choice is a dense masked select over the node
+    costs, bottom up. `intra_in_p` (CTU 32 only) adds the per-CU intra
+    fallback. Returns the unit maps (4x4 units), the selected level planes
+    and reconstruction, and the one-buffer host wire of the per-frame
+    path."""
+    if ctu not in (32, 64):
+        raise NotImplementedError(f"tree P stage at ctu={ctu} (32 and 64 are "
                                   "ported)")
     H, W = y_pad.shape
     dev = y_pad.device
@@ -692,7 +703,7 @@ def _p_stage_tree(y_pad, u_pad, v_pad, ry, ru, rv, *, ctu: int, qp,
     lam = const(tables.LAMBDA_ME_FX_P, dev)[qp]
     lamf = const(tables.LAMBDA_FX_P, dev)[qp]
     cur = y_pad.to(I32)
-    sizes = (16, 32)
+    sizes = ((8,) if cu8 else ()) + (16, 32) + ((64,) if ctu == 64 else ())
 
     if search > HIER_THRESHOLD:
         ints = _me_hier(cur, ry, sizes=sizes, search=search, lam=lam,
@@ -700,9 +711,14 @@ def _p_stage_tree(y_pad, u_pad, v_pad, ry, ru, rv, *, ctu: int, qp,
     else:
         n = 2 * search + 1
         mvcost = (lam * const(_mv_bits_grid(search), dev)) >> 8
-        g16 = sad_grids(cur, ry, S=16, search=search, pad=PAD)
+        # one sweep at the finest level; each parent's grid is the 2x2
+        # sum-pool of its children's (exact: SAD is additive)
+        grids = {sizes[0]: sad_grids(cur, ry, S=sizes[0], search=search,
+                                     pad=PAD)}
+        for S in sizes[1:]:
+            grids[S] = _pool2(grids[S // 2])
         ints = {}
-        for S, g in ((16, g16), (32, _pool2(g16))):
+        for S, g in grids.items():
             cost = g + mvcost[:, None, None]
             k = first_argmin(cost, 0).to(I32)           # first min, dy-major
             ints[S] = (k // n - search, k % n - search,
@@ -718,30 +734,54 @@ def _p_stage_tree(y_pad, u_pad, v_pad, ry, ru, rv, *, ctu: int, qp,
                                vis=vis, kernels=kernels)
         enc[S]["icost"] = icost
 
-    ov = ((lamf >> 4) * 10) >> 4                        # split overhead proxy
-    c16s = _pool2(enc[16]["cost"]) + ov
-    split32 = c16s < enc[32]["cost"]
-    c32eff = torch.where(split32, c16s, enc[32]["cost"]).to(I32)
-    depth_u = _upu(split32, 32).to(I32)
-    whole = depth_u == 0
+    # bottom-up split select: a node splits when its four children's best
+    # costs plus the split overhead proxy beat coding it whole
+    ov = ((lamf >> 4) * 10) >> 4
+    best = {sizes[0]: enc[sizes[0]]["cost"]}
+    split = {}
+    for S in sizes[1:]:
+        cs = _pool2(best[S // 2]) + ov
+        split[S] = cs < enc[S]["cost"]
+        best[S] = torch.where(split[S], cs, enc[S]["cost"]).to(I32)
+    # CU depth per unit: one more level wherever every enclosing node split
+    depth_u = torch.zeros((H // 4, W // 4), dtype=I32, device=dev)
+    inside = torch.ones_like(depth_u, dtype=torch.bool)
+    for S in reversed(sizes[1:]):
+        inside = inside & _upu(split[S], S)
+        depth_u = depth_u + inside.to(I32)
+    ctu_log2 = ctu.bit_length() - 1
+
+    def by_depth(d_map, vals):
+        """vals {S: tensor} -> the entry of the CU size at each depth."""
+        out = vals[sizes[0]]
+        for S in sizes[1:]:
+            m = d_map == ctu_log2 - (S.bit_length() - 1)
+            out = torch.where(m.reshape(m.shape + (1,) * (out.dim()
+                                                          - m.dim())),
+                              vals[S], out)
+        return out
 
     def mv_units(e, S):
         return torch.stack([_upu(e["mvx"], S), _upu(e["mvy"], S)], -1)
 
     def cbf_units(e, S):
-        return _upu((e["lev_y"] != 0).any(dim=-1).any(dim=-1), S)
+        lv = e["lev_y"]
+        if S == 64:                                     # TU 32 inside
+            nby, nbx = lv.shape[:2]
+            c = (lv.reshape(nby, nbx, 2, 32, 2, 32) != 0).any(5).any(3)
+            return _upu(c.permute(0, 2, 1, 3).reshape(nby * 2, nbx * 2), 32)
+        return _upu((lv != 0).any(dim=-1).any(dim=-1), S)
 
-    mv_u = torch.where(whole[..., None], mv_units(enc[32], 32),
-                       mv_units(enc[16], 16))
-    cbf_u = torch.where(whole, cbf_units(enc[32], 32), cbf_units(enc[16], 16))
+    mv_u = by_depth(depth_u, {S: mv_units(e, S) for S, e in enc.items()})
+    cbf_u = by_depth(depth_u, {S: cbf_units(e, S) for S, e in enc.items()})
     # only 32-CUs carry a depth-1 residual quadtree
-    trd_u = (_upu(enc[32]["trd"], 32) * whole).to(I32) if tr_split \
-        else torch.zeros_like(depth_u)
+    trd_u = ((_upu(enc[32]["trd"], 32)
+              * (depth_u == ctu_log2 - 5)).to(I32) if tr_split
+             else torch.zeros_like(depth_u))
 
     def sel_plane(key, sub):                            # sub: 4 luma, 2 chroma
-        d_px = whole.repeat_interleave(sub, 0).repeat_interleave(sub, 1)
-        return torch.where(d_px, to_plane(enc[32][key]),
-                           to_plane(enc[16][key]))
+        d_px = depth_u.repeat_interleave(sub, 0).repeat_interleave(sub, 1)
+        return by_depth(d_px, {S: to_plane(e[key]) for S, e in enc.items()})
 
     lev_yp = sel_plane("lev_y", 4)
     lev_up = sel_plane("lev_u", 2)
@@ -750,9 +790,9 @@ def _p_stage_tree(y_pad, u_pad, v_pad, ry, ru, rv, *, ctu: int, qp,
            sel_plane("rec_v", 2))
 
     pred_intra_u = torch.zeros_like(depth_u)
-    if intra_in_p:
+    if intra_in_p and ctu == 32:
         acc, im, (ilev, irec), outs_c = _intra_in_p(
-            cur, u_pad, v_pad, rec, c32eff, qp=qp, lamf=lamf,
+            cur, u_pad, v_pad, rec, best[32], qp=qp, lamf=lamf,
             sign_hiding=sign_hiding)
 
         def sub_plane(plane, blocks_new, S):
@@ -822,10 +862,15 @@ def tree_deblock(rec, res, ctu: int):
 
 
 def inter_deblock(rec, mvs, lev_y, qp, B: int):
-    """Loop filter of a fixed-grid P frame: bS from MVs and luma cbf."""
+    """Loop filter of a fixed-grid P frame: bS from MVs and luma cbf (per
+    32-TB quadrant of a 64-CU)."""
     H, W = rec[0].shape
     cbf_blk = (lev_y != 0).any(dim=-1).any(dim=-1)
-    bs_v, bs_h = dbk.inter_bs_from_blocks(mvs, cbf_blk, B)
+    qcbf = None
+    if B == 64:
+        nby, nbx = cbf_blk.shape
+        qcbf = (lev_y.reshape(nby, nbx, 2, 32, 2, 32) != 0).any(5).any(3)
+    bs_v, bs_h = dbk.inter_bs_from_blocks(mvs, cbf_blk, B, qcbf=qcbf)
     qp_map = _qp_tensor(qp, rec[0].device).expand(H // 4, W // 4)
     return dbk.deblock_frame(rec[0], rec[1], rec[2], bs_v=bs_v, bs_h=bs_h,
                              qp_map=qp_map)
@@ -857,7 +902,7 @@ def p_frame_tree_device(y_pad, u_pad, v_pad, ref_y, ref_u, ref_v, *, ctu: int,
                         qp, search: int, me_precision: int,
                         deblock: bool = False, sign_hiding: bool = False,
                         tr_split: bool = False, intra_in_p: bool = False,
-                        vis=None, kernels: bool = True):
+                        cu8: bool = False, vis=None, kernels: bool = True):
     """One quadtree P frame against the previous decoded frame (uint8
     planes): `_p_stage_tree` plus the loop filter of the selected
     reconstruction. Returns the reference's p_frame_tree_device dict."""
@@ -867,7 +912,8 @@ def p_frame_tree_device(y_pad, u_pad, v_pad, ref_y, ref_u, ref_v, *, ctu: int,
     result = _p_stage_tree(y_pad, u_pad, v_pad, ry, ru, rv, ctu=ctu, qp=qp,
                            search=search, me_precision=me_precision,
                            sign_hiding=sign_hiding, tr_split=tr_split,
-                           intra_in_p=intra_in_p, vis=vis, kernels=kernels)
+                           intra_in_p=intra_in_p, cu8=cu8, vis=vis,
+                           kernels=kernels)
     if deblock:
         rec = tuple(result[k].to(I32)
                     for k in ("recon_y", "recon_u", "recon_v"))

@@ -4,22 +4,31 @@ digest and the decoder check that chip_smoke.py and the tests share.
 tests/fixtures/torch_port_aus.json holds the SHA-256 and length of every AU
 the JAX package writes for each of RUNS (tools/make_torch_fixtures.py writes
 it, with the same RUNS and the same configuration keywords); the port's AUs
-must hash the same. All runs share cu_size 32, quarter-pel, fixed QP 32,
-deblocking + SAO + sign hiding, intra_period 100, frame_pipeline_depth 2.
-`slice_kwargs` is the fixed-CU configuration (FASTEST_COMPUTATION, search
-16); `fast_kwargs` is the configuration the repository's bench.py times
-(FAST_COMPUTATION, search 64: CU quadtree P frames with hierarchical ME,
-intra-in-P, inter RQT, and the split-RDO IDR):
+must hash the same. All runs share quarter-pel, fixed QP 32, deblocking +
+SAO + sign hiding, intra_period 100, frame_pipeline_depth 2.
+`slice_kwargs` is the fixed-CU configuration (cu_size 32,
+FASTEST_COMPUTATION, search 16); `fast_kwargs` is the configuration the
+repository's bench.py times (FAST_COMPUTATION, search 64: CU quadtree P
+frames with hierarchical ME, intra-in-P, inter RQT, and the split-RDO IDR);
+`ctu64_kwargs` is the JAX package's default configuration (cu_size 64,
+FAST_COMPUTATION, search 16); `full_kwargs` is FULL_COMPUTATION (8x8 inter
+CUs) at cu_size 32, search 64:
 
-  small:      synth_clip(128, 96, 6, seed=3), slice, encode_frames(chunk=3)
-  720p:       synth_clip(1280, 720, 17, seed=0), slice, encode_frames(chunk=8)
-  fast_small: synth_clip(128, 96, 6, seed=3), fast, encode_frames(chunk=3)
-  fast_720p:  synth_clip(1280, 720, 9, seed=0), fast, encode_frames(chunk=8)
+  small:          synth_clip(128, 96, 6, seed=3), slice, chunk 3
+  720p:           synth_clip(1280, 720, 17, seed=0), slice, chunk 8
+  fast_small:     synth_clip(128, 96, 6, seed=3), fast, chunk 3
+  fast_720p:      synth_clip(1280, 720, 9, seed=0), fast, chunk 8
+  default_720p:   synth_clip(1280, 720, 9, seed=0), ctu64, chunk 8
+  full64_720p:    the same clip, ctu64 with FULL and search 64
+  fastest64_720p: the same clip, ctu64 with FASTEST
+  full32_small:   synth_clip(128, 96, 4, seed=3), full, chunk 3
 
-and small variants of the fast configuration with single settings replaced
-(`over`) and at a size that needs padding (120x88); with search 16 the
-clip's motion leaves the window, so that run re-encodes frames of a chunk as
-IDR (scene cuts).
+and small variants with single settings replaced (`over`): of the fast
+configuration (also at a size that needs padding, 120x88; with search 16
+the clip's motion leaves the window, so that run re-encodes frames of a
+chunk as IDR: scene cuts), of the CTU-64 one on synth_clip(192, 128, 4,
+seed=3) (2 x 3 CTUs, so a wavefront diagonal holds two lanes), and of the
+FULL one at search 16.
 INTRA_CASES are single frames (`intra_frame`) through the split-RDO IDR
 stage alone; the fixture holds a SHA-256 per output array for them.
 """
@@ -54,6 +63,38 @@ RUNS = {
                                  over=dict(max_intra_tr_depth=0)),
     "fast_padded_small": dict(width=120, height=88, frames=4, seed=3,
                               chunk=3, config="fast"),
+    "default_720p": dict(width=1280, height=720, frames=9, seed=0, chunk=8,
+                         config="ctu64"),
+    "full64_720p": dict(width=1280, height=720, frames=9, seed=0, chunk=8,
+                        config="ctu64",
+                        over=dict(performance_mode="FULL_COMPUTATION",
+                                  me_search_range=64)),
+    "fastest64_720p": dict(width=1280, height=720, frames=9, seed=0,
+                           chunk=8, config="ctu64",
+                           over=dict(performance_mode="FASTEST_COMPUTATION")),
+    "default_small": dict(width=192, height=128, frames=4, seed=3, chunk=3,
+                          config="ctu64"),
+    "faster64_small": dict(width=192, height=128, frames=4, seed=3, chunk=3,
+                           config="ctu64",
+                           over=dict(performance_mode="FASTER_COMPUTATION")),
+    "faster64_s64_small": dict(width=192, height=128, frames=4, seed=3,
+                               chunk=3, config="ctu64",
+                               over=dict(performance_mode="FASTER_COMPUTATION",
+                                         me_search_range=64)),
+    "fastest64_small": dict(width=192, height=128, frames=4, seed=3, chunk=3,
+                            config="ctu64",
+                            over=dict(performance_mode="FASTEST_COMPUTATION")),
+    "full64_small": dict(width=192, height=128, frames=4, seed=3, chunk=3,
+                         config="ctu64",
+                         over=dict(performance_mode="FULL_COMPUTATION",
+                                   me_search_range=64)),
+    "full64_s16_small": dict(width=192, height=128, frames=4, seed=3,
+                             chunk=3, config="ctu64",
+                             over=dict(performance_mode="FULL_COMPUTATION")),
+    "full32_small": dict(width=128, height=96, frames=4, seed=3, chunk=3,
+                         config="full"),
+    "full32_s16_small": dict(width=128, height=96, frames=4, seed=3, chunk=3,
+                             config="full", over=dict(me_search_range=16)),
 }
 
 # single frames through encode_frame_intra(split_rdo=True): (width, height,
@@ -88,12 +129,32 @@ def fast_kwargs(width: int, height: int, **over) -> dict:
     return kw
 
 
+def ctu64_kwargs(width: int, height: int, **over) -> dict:
+    """Keywords of the JAX package's default configuration (EncoderConfig()
+    codes 64x64 CTUs in FAST_COMPUTATION with search 16) under the fixed
+    fields above, with `over` replacing single settings."""
+    kw = slice_kwargs(width, height)
+    kw.update(cu_size=64, performance_mode="FAST_COMPUTATION")
+    kw.update(over)
+    return kw
+
+
+def full_kwargs(width: int, height: int, **over) -> dict:
+    """Keywords of FULL_COMPUTATION (the inter quadtree down to 8x8 CUs) at
+    cu_size 32, search 64, with `over` replacing single settings."""
+    return fast_kwargs(width, height, **{
+        "performance_mode": "FULL_COMPUTATION", **over})
+
+
+_KWARGS = {None: slice_kwargs, "fast": fast_kwargs, "ctu64": ctu64_kwargs,
+           "full": full_kwargs}
+
+
 def run_kwargs(name: str) -> dict:
     """Configuration keywords of one of RUNS."""
     r = RUNS[name]
-    if r.get("config") == "fast":
-        return fast_kwargs(r["width"], r["height"], **r.get("over", {}))
-    return slice_kwargs(r["width"], r["height"])
+    return _KWARGS[r.get("config")](r["width"], r["height"],
+                                    **r.get("over", {}))
 
 
 def config_from(kw: dict) -> EncoderConfig:

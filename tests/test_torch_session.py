@@ -9,7 +9,9 @@ versions) against homerhevc_tpu.api.HomerEncoder(backend="jax").
   * seed_reference carries a P chain over: both sessions seeded from the
     same planes give byte-identical P AUs;
   * settings outside the ported configurations raise NotImplementedError
-    (the quadtree configurations are in tests/test_torch_session_fast.py).
+    (the quadtree configurations are in tests/test_torch_session_fast.py,
+    CTU 64 and FULL_COMPUTATION in tests/test_torch_ctu64.py and
+    tests/test_torch_cu8.py).
 
 Each package gets its own EncoderConfig, built from one keyword dictionary
 (the port refuses the other package's class). Tolerance: exact, byte for
@@ -25,7 +27,7 @@ import pytest
 
 from homerhevc_tpu.api import HomerEncoder as JaxEncoder
 from homerhevc_tpu_torch.api import HomerEncoder
-from homerhevc_tpu_torch.config import BitrateMode, PerformanceMode, RDMode
+from homerhevc_tpu_torch.config import BitrateMode, RDMode
 from homerhevc_tpu_torch.utils import fixtures as fx
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -127,9 +129,7 @@ def test_seed_reference_carry_over(small):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("performance_mode", PerformanceMode.FULL_COMPUTATION),
     ("cu_size", 16),
-    ("cu_size", 64),
     ("gop_size", 2),
     ("bitrate_mode", BitrateMode.CBR),
     ("wpp", True),

@@ -15,8 +15,8 @@ for byte.
     max_intra_tr_depth=0, and at 120x88 (padded to 128x96);
   * every stream decodes in libde265 to the port's reconstruction;
   * encode_frame frame by frame equals encode_frames; seed_reference
-    continues a FAST P chain; the settings still outside raise
-    NotImplementedError naming the setting.
+    continues a FAST P chain; the settings still outside (cu_size 16 in
+    every mode among them) raise NotImplementedError naming the setting.
 """
 
 import dataclasses
@@ -29,8 +29,7 @@ import numpy as np
 import pytest
 
 from homerhevc_tpu_torch.api import HomerEncoder
-from homerhevc_tpu_torch.config import (BitrateMode, PerformanceMode,
-                                        RDMode)
+from homerhevc_tpu_torch.config import BitrateMode, RDMode
 from homerhevc_tpu_torch.utils import fixtures as fx
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -188,19 +187,30 @@ def test_seed_reference_carry_over_fast():
 
 
 @pytest.mark.parametrize("mode", ["FASTEST_COMPUTATION", "FASTER_COMPUTATION",
-                                  "FAST_COMPUTATION"])
+                                  "FAST_COMPUTATION", "FULL_COMPUTATION"])
 @pytest.mark.parametrize("search", [8, 24, 32, 64])
 def test_settings_inside_are_admitted(mode, search):
     cfg = fx.fast_config(128, 96, performance_mode=mode,
                          me_search_range=search)
     enc = HomerEncoder(cfg, device="cpu")
     assert enc.intra_split == (mode != "FASTEST_COMPUTATION")
-    assert enc.inter_split == (mode == "FAST_COMPUTATION")
+    assert enc.inter_split == (mode in ("FAST_COMPUTATION",
+                                        "FULL_COMPUTATION"))
+    assert enc.inter_cu8 == (mode == "FULL_COMPUTATION")
+
+
+@pytest.mark.parametrize("mode", ["FULL_COMPUTATION", "FAST_COMPUTATION",
+                                  "FASTER_COMPUTATION",
+                                  "FASTEST_COMPUTATION"])
+def test_cu16_raises(mode):
+    # the JAX package has no quadtree P stage at CTU 16 (FAST and FULL fail
+    # there); no mode is ported at cu_size 16
+    cfg = fx.fast_config(128, 96, cu_size=16, performance_mode=mode)
+    with pytest.raises(NotImplementedError, match="cu_size=16"):
+        HomerEncoder(cfg, device="cpu")
 
 
 @pytest.mark.parametrize("field,value", [
-    ("performance_mode", PerformanceMode.FULL_COMPUTATION),
-    ("cu_size", 64),
     ("cu_size", 16),
     ("gop_size", 2),
     ("bitrate_mode", BitrateMode.CBR),
@@ -218,15 +228,42 @@ def test_out_of_slice_settings_raise(field, value):
 
 
 def test_earlier_fixture_entries_did_not_move():
-    # the fixed-CU runs of the fixture, as first written from the JAX package
+    # the fixed-CU runs of the fixture, as first written from the JAX
+    # package, and the CTU-64 and FULL runs as written when they came
     want = {
         "small": "57b868a82d6ba0abc28ecb16c237193258a654d8262210ad3b96e7b06a"
                  "ae520f",
         "720p": "38d9e00ffedbef2351fe8f5d2144326fd973db539b9045787130323f64b"
                 "c68e0",
+        "default_720p": "3308011253014f517466e39292414a4b2971a3d69474e6e850"
+                        "7988f6f546efde",
+        "full64_720p": "f1c45a5d4fb74fc8285d1c0b961f05042ece653f40cdd852919"
+                       "f0a5c054dbaa0",
+        "fastest64_720p": "5ba52137699a1c9f231f70b41110e751d1a1ec5ab200538"
+                          "492cf6c697c7bfd18",
+        "default_small": "f20da1e6e91ebf7a1de35b96b5cb7845d01ec9d3a08c6684e"
+                         "35cde44b322f69c",
+        "faster64_small": "0c35970681312cbcf67a1e3f2dc9edd59e9a466c09b6f6a"
+                          "77b4591cf206e7638",
+        "faster64_s64_small": "a1b3c26a24cf3508f8777ab9ec74c44b365a8858e88"
+                              "955a24be30c022befdc4a",
+        "fastest64_small": "135608562ef3ddffabb00555d052dfb50b96e3624afcf52"
+                           "d93b1e2aab720b451",
+        "full64_small": "5b5cd76c4da825769c63c9dd82b1b36d74d9615c133d071e1e"
+                        "a3d23e2da03c5e",
+        "full64_s16_small": "86c439fa44b724e3056e3db7a4afd8ce986fe55ad97f02"
+                            "b8e7edefe9a99297e9",
+        "full32_small": "fa2ee799e6d69e7055c1112fe27f1639415e32af789190a76"
+                        "563b1fe09f109be",
+        "full32_s16_small": "ca1bfbfd599621308ed1c71c3673d0126c17e8a26b4f7"
+                            "fcdee64c31ea74d6fbd",
     }
     for name, digest in want.items():
         aus = _fixture()[name]["aus"]
         assert len(aus) == fx.RUNS[name]["frames"]
         assert hashlib.sha256(json.dumps(aus, sort_keys=True)
                               .encode()).hexdigest() == digest, name
+    # FULL, FAST and FASTER code the same IDR (chip_smoke.py continues
+    # full64_720p from default_720p's IDR planes on that ground)
+    fx_ = _fixture()
+    assert fx_["full64_720p"]["aus"][0] == fx_["default_720p"]["aus"][0]

@@ -12,7 +12,10 @@ Builds kernels/me_sad.cu and kernels/gather_win.cu, then
   * checks both kernels against the plain PyTorch version (exact equality)
     and times them (chip_smoke.cuda_ms: a CUDA graph of the launches,
     replayed between CUDA events), beside an empty kernel of the same grid,
-    in the order a, b, ..., b, a;
+    in the order a, b, ..., b, a; me_sad at B 32 (736x1280) and B 64
+    (768x1280), S 16, also beside its generic (any-B) kernel, which a
+    second build of kernels/me_sad.cu with -DME_SAD_GENERIC_ONLY takes at
+    every B;
   * builds tools/gather_variants.cu (two other designs of the gather: a warp
     per window row, and the window staged in shared memory and written as
     16-byte vectors), checks them the same way and times them in the same
@@ -74,14 +77,16 @@ def sass_report(name: str, lib) -> None:
         print(f"  sass {func}: {total[func]} instructions; {shown}")
 
 
-def build_so(src: str, so_name: str, show: bool = False) -> str:
-    """Compile one .cu with the port's flags into OUT, with `show` printing
-    what `-Xptxas -v` said of it. Returns the library's path."""
+def build_so(src: str, so_name: str, show: bool = False,
+             flags: tuple = ()) -> str:
+    """Compile one .cu with the port's flags (and `flags`) into OUT, with
+    `show` printing what `-Xptxas -v` said of it. Returns the library's
+    path."""
     from homerhevc_tpu_torch.kernels import build
     so = os.path.join(OUT, so_name)
     os.makedirs(OUT, exist_ok=True)
-    res = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", so,
-                          src], capture_output=True, text=True)
+    res = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, *flags,
+                          "-o", so, src], capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed for {src}:\n{res.stderr}")
     if show:
@@ -155,25 +160,53 @@ def main() -> int:
     old = old_kernels(args.old) if args.old else {}
 
     frames = clip("720p")
-    H, W, B, S = 736, 1280, 32, 16
-    cases = cs.me_cases(dev, frames[1], frames[0], H, W, S)
+    W, S = 1280, 16
 
     def stream():        # the current stream: a graph capture's own, inside
         return torch.cuda.current_stream(dev).cuda_stream
 
-    want = {k: me.integer_me_plain(*v, B=B, search=S, pad=PAD)
-            for k, v in cases.items()}
-    runs = []
-    for k, v in cases.items():
-        got = me.integer_me_cuda(*v, B=B, search=S, pad=PAD)
-        assert all(torch.equal(a, b) for a, b in zip(got, want[k])), k
-    for dt in ("uint8", "int16"):
-        cur, ref, mc = cases[f"real {dt}"]
-        runs.append((f"me_sad, cur {dt}",
-                     lambda cur=cur, ref=ref, mc=mc: me.integer_me_cuda(
-                         cur, ref, mc, B=B, search=S, pad=PAD)))
-    runs.append(("me_sad, empty grid",
-                 lambda: me.ME_SAD.launch_floor(H, W, B, S, stream())))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    generic_lib = ctypes.CDLL(build_so(
+        os.path.join(ROOT, "homerhevc_tpu_torch", "kernels", "me_sad.cu"),
+        "me_sad_generic.so", flags=("-DME_SAD_GENERIC_ONLY",)))
+    generic_me = generic_lib.me_sad_launch
+    generic_me.argtypes, generic_me.restype = me.ME_SAD.argtypes, I
+    for H, B in ((768, 64), (736, 32)):
+        cases = cs.me_cases(dev, frames[1], frames[0], H, W, S)
+        want = {k: me.integer_me_plain(*v, B=B, search=S, pad=PAD)
+                for k, v in cases.items()}
+        runs = []
+        for k, v in cases.items():
+            got = me.integer_me_cuda(*v, B=B, search=S, pad=PAD)
+            assert all(torch.equal(a, b) for a, b in zip(got, want[k])), k
+        for dt in ("uint8", "int16"):
+            cur, ref, mc = cases[f"real {dt}"]
+            runs.append((f"me_sad, cur {dt}",
+                         lambda cur=cur, ref=ref, mc=mc: me.integer_me_cuda(
+                             cur, ref, mc, B=B, search=S, pad=PAD)))
+        cur, ref, mc = cases["real uint8"]
+        cost = torch.empty((H // B, W // B), dtype=torch.int32, device=dev)
+        idx = torch.empty_like(cost)
+
+        def generic(cur=cur, ref=ref, mc=mc, cost=cost, idx=idx, H=H, B=B):
+            rc = generic_me(cur.data_ptr(), ref.data_ptr(), mc.data_ptr(),
+                            cost.data_ptr(), idx.data_ptr(), H, W,
+                            ref.shape[1], B, S, PAD, 1,
+                            int(ref.dtype == torch.uint8), stream())
+            assert rc == 0, rc
+        generic()
+        assert torch.equal(cost, want["real uint8"][0])
+        assert torch.equal(idx, want["real uint8"][1])
+        runs.append(("me_sad generic (any-B) kernel, cur uint8", generic))
+        runs.append(("me_sad, empty grid",
+                     lambda H=H, B=B: me.ME_SAD.launch_floor(H, W, B, S,
+                                                             stream())))
+        if B == 64:
+            print(f"me_sad, {H}x{W}, B {B}, S {S} (ms per launch, 50 "
+                  "launches):")
+            for label, fn in runs + runs[::-1]:
+                print(f"  {label}: {cs.cuda_ms(fn, 50):.4f}")
+    # B 32 goes on below with the old kernels, where --old names them
     cur, ref, mc = cases["real int16"]
     if old:
         cost = torch.empty((H // B, W // B), dtype=torch.int32, device=dev)
@@ -193,7 +226,6 @@ def main() -> int:
 
     _, best = want["real uint8"]
     sites = cs.gather_sites(dev, frames[0], best, H, W, B, S)
-    P, I = ctypes.c_void_p, ctypes.c_int
     variants = ctypes.CDLL(build_so(
         os.path.join(ROOT, "tools", "gather_variants.cu"),
         "gather_variants.so", show=True)).gather_variants_launch

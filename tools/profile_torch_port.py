@@ -1,11 +1,15 @@
 """Where the time goes in the torch port on one GPU at 1280x720.
 
-    python3 tools/profile_torch_port.py [fastest|fast] [--idr-ctus RxC]
-                                        [--no-idr-profile]
+    python3 tools/profile_torch_port.py [fastest|fast|default|full64]
+                                        [--idr-ctus RxC] [--no-idr-profile]
+                                        [--no-idr]
 
 `fastest` is the fixed-CU configuration (FASTEST_COMPUTATION, search 16),
 `fast` (the default) the one the repository's bench.py times
-(FAST_COMPUTATION, search 64: quadtree P frames, split-RDO IDR).
+(FAST_COMPUTATION, search 64: quadtree P frames, split-RDO IDR), `default`
+the JAX package's default configuration (64x64 CTUs, FAST_COMPUTATION,
+search 16) and `full64` FULL_COMPUTATION at CTU 64, search 64 (8x8 inter
+CUs).
 
 For one P chunk of 8 frames (device stage only, no host CABAC) and for one
 IDR device stage, after a warm-up, torch.profiler (CPU + CUDA activities)
@@ -21,9 +25,12 @@ whole picture does not end within a quarter of an hour on an H100's host.
 Its launches go with the diagonals of the wavefront (every lane of a
 diagonal is one batch), not with the picture's area, so by default it is
 profiled on the top-left 3 x 8 CTUs of the picture (12 diagonals against 84)
-and the launches per diagonal are printed; its wall time on the whole
-picture is still printed, unprofiled. `--idr-ctus RxC` sets the crop
-(`0x0`: the whole picture, the default for `fastest`), `--no-idr-profile`
+and the launches per diagonal are printed (at CTU 64 on the top-left 2 x 4
+CTUs, 6 diagonals against 42); its wall time on the whole picture is still
+printed, unprofiled. `--idr-ctus RxC` sets the crop (`0x0`: the whole
+picture, the default for `fastest`), `--no-idr` leaves out both the IDR's
+timing and its profile (the session still codes one IDR for the reference
+planes), `--no-idr-profile`
 leaves the profile out. Needs a CUDA device; imports no JAX.
 """
 
@@ -118,11 +125,13 @@ class StageClock:
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("config", nargs="?", default="fast",
-                    choices=("fastest", "fast"))
+                    choices=("fastest", "fast", "default", "full64"))
     ap.add_argument("--idr-ctus", default=None, metavar="RxC",
                     help="profile the IDR on the top-left R x C CTUs only "
-                         "(default: 3x8 for fast, 0x0 = whole for fastest)")
+                         "(default: 3x8 at CTU 32, 2x4 at CTU 64, 0x0 = "
+                         "whole for fastest)")
     ap.add_argument("--no-idr-profile", action="store_true")
+    ap.add_argument("--no-idr", action="store_true")
     args = ap.parse_args(argv)
 
     sys.path.insert(0, ROOT)
@@ -140,10 +149,15 @@ def main(argv) -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    cfg = (fx.fast_config if args.config == "fast" else fx.slice_config)(
-        1280, 720)
-    print(f"configuration {args.config}: {cfg.performance_mode.name}, search "
-          f"{cfg.me_search_range}, on {card}", flush=True)
+    cfg = fx.config_from({
+        "fastest": fx.slice_kwargs, "fast": fx.fast_kwargs,
+        "default": fx.ctu64_kwargs,
+        "full64": lambda w, h: fx.ctu64_kwargs(
+            w, h, performance_mode="FULL_COMPUTATION", me_search_range=64),
+    }[args.config](1280, 720))
+    print(f"configuration {args.config}: {cfg.performance_mode.name}, "
+          f"cu_size {cfg.cu_size}, search {cfg.me_search_range}, on {card}",
+          flush=True)
 
     frames = list(synth_clip(1280, 720, 9, seed=0))
     enc = HomerEncoder(cfg, device=dev)
@@ -187,9 +201,12 @@ def main(argv) -> int:
 
     def idr(planes):
         return intra_torch.encode_frame_intra(
-            *planes, B=32, qp=cfg.qp, sign_hiding=True,
+            *planes, B=enc.ctu, qp=cfg.qp, sign_hiding=True,
             split_rdo=enc.intra_split, tu_depth=tu)
 
+    if args.no_idr:
+        enc.close()
+        return 0
     whole = (y0, u0, v0)
     ms = _synced_ms(lambda: idr(whole))
     line = f"idr (whole picture, no profiler): {ms:.1f} ms"
@@ -206,12 +223,14 @@ def main(argv) -> int:
         line += f", pass A {ms_a:.1f} ms, pass B {ms - ms_a:.1f} ms"
     print(line, flush=True)
     if not args.no_idr_profile:
-        crop = args.idr_ctus or ("3x8" if enc.intra_split else "0x0")
+        ctu = enc.ctu
+        crop = args.idr_ctus or (("2x4" if enc.ctu64 else "3x8")
+                                 if enc.intra_split else "0x0")
         rows, cols = (int(v) for v in crop.split("x"))
         planes, what = whole, "whole picture"
-        nby, nbx = enc.ph // 32, enc.pw // 32
+        nby, nbx = enc.ph // ctu, enc.pw // ctu
         if rows and cols:
-            h, w = rows * 32, cols * 32
+            h, w = rows * ctu, cols * ctu
             planes = (y0[:h, :w].contiguous(),
                       u0[:h // 2, :w // 2].contiguous(),
                       v0[:h // 2, :w // 2].contiguous())
@@ -222,7 +241,7 @@ def main(argv) -> int:
             _window(f"idr pass A ({what})", lambda: pass_a(planes[0]),
                     unit="IDR", warm=False)
         _window(f"idr ({what}; {diagonals} diagonals of the whole picture's "
-                f"{enc.pw // 32 + 2 * (enc.ph // 32 - 1)})",
+                f"{enc.pw // ctu + 2 * (enc.ph // ctu - 1)})",
                 lambda: idr(planes), per=diagonals, unit="diagonal",
                 warm=False)
     enc.close()
