@@ -42,12 +42,21 @@ Phases, each of which raises on failure (non-zero exit, no result line):
                    me_sad 0, gather_win 12;
                  fastest64_720p: FASTEST, cu_size 64, search 16; me_sad 1,
                    gather_win 2;
+                 cbr_wpp_720p: fast_720p's configuration under CBR at 400
+                   kbps with WPP (per-CTU-row QPs, cu_qp_delta, entry
+                   points), on synth_clip(1280, 720, 17): the IDR and two
+                   chunks of 8 P frames, the second planned before the
+                   first's bits return; me_sad 0, gather_win 6;
+                 vbr_fastest_720p: fastest_720p's configuration under VBR at
+                   400 kbps, the same 17 frames; me_sad 1, gather_win 2;
                every AU's SHA-256 must equal tests/fixtures/
                torch_port_aus.json (written from the JAX package); the same
                P frames with kernels=False must give identical AUs and
-               launch nothing; libde265 decode check where the library
-               loads; each path's small fixture clip too, with and without
-               the kernels
+               launch nothing (a rate-controlled path continues from a copy
+               of the rate control's state after the IDR, and its P frames
+               are timed here, in the run that counts the launches); libde265
+               decode check where the library loads; each path's small
+               fixture clip too, with and without the kernels
   5. timing  — after warm-up: 16 P frames end to end on the fixed-CU path,
                8 on each quadtree path (CTU 32 and 64); a P chunk's device
                stage on each; the IDR's device stage, warm (phase 4 coded
@@ -573,6 +582,13 @@ PATHS = {
                         small="full64_small", seed="default_720p"),
     "fastest64_720p": dict(run="fastest64_720p", frames=9, me_sad=1,
                            gather_win=2, small="fastest64_small"),
+    # rate control: the IDR's bits steer the P frames' QPs, so the IDR is
+    # coded in the same session and the P frames are timed in this run
+    "cbr_wpp_720p": dict(run="cbr_wpp_720p", frames=17, me_sad=0,
+                         gather_win=6, small="cbr_wpp_small", rc=True),
+    "vbr_fastest_720p": dict(run="vbr_fastest_720p", frames=17, me_sad=1,
+                             gather_win=2, small="vbr_fastest_small",
+                             rc=True),
 }
 
 
@@ -583,6 +599,8 @@ def run_path(dev, name, fixture, seeds):
     from those planes (seed_reference) without coding the IDR again here:
     no kernel runs in an IDR, and the split-RDO IDR takes most of a minute.
     A path with a `seed` starts from `seeds[seed]`."""
+    import copy
+
     import torch
 
     from homerhevc_tpu_torch.api import HomerEncoder
@@ -628,9 +646,12 @@ def run_path(dev, name, fixture, seeds):
         ref0 = tuple(p.cpu().numpy() for p in enc._ref)
         torch.cuda.synchronize()
         idr_s = time.perf_counter() - t0
+    rc0 = copy.deepcopy(enc._rc)            # rate control after the IDR
+    t_p = time.perf_counter()
     aus += enc.encode_frames(frames[1:], chunk=run["chunk"])
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
+    p_secs = time.perf_counter() - t_p
     launches = {k.name: k.launches for k in kernels}
     idr_note = (f"; of it the first IDR through encode_frames, cold, "
                 f"{idr_s:.2f} s" if idr_s else "")
@@ -644,6 +665,10 @@ def run_path(dev, name, fixture, seeds):
     if launches != expect:
         raise AssertionError(f"{name}: launches {launches}, expected "
                              f"{expect} for {n_p} P frames")
+    if path.get("rc"):
+        log(f"  {name}: {n_p} P frames end to end in this run: "
+            f"{p_secs * 1000:.1f} ms -> {n_p / p_secs:.2f} fps (slice QPs "
+            f"issued by rate control: {enc.last_qp} last) on {card_line()}")
     got = fx.au_digest(aus[1:] if seed else aus)
     want_c = want[1:] if seed else want
     bad = [i for i, (a, b) in enumerate(zip(got, want_c)) if a != b]
@@ -667,6 +692,7 @@ def run_path(dev, name, fixture, seeds):
 
     plain = HomerEncoder(cfg, device=dev, kernels=False)
     plain.seed_reference(ref0, poc=1, last_idr=0)
+    plain._rc = copy.deepcopy(rc0)
     aus_plain = plain.encode_frames(frames[1:], chunk=run["chunk"])
     plain.close()
     if aus_plain != aus[1:]:

@@ -5,7 +5,8 @@
     enc.close()
 
 Port of homerhevc_tpu/api.py for the configurations this package supports
-(every performance mode at cu_size 32 and 64, fixed QP, rd_mode FULL): IDR
+(every performance mode at cu_size 32 and 64, fixed QP or CBR / VBR rate
+control with per-CTU-row QPs on the quadtree path, WPP, rd_mode FULL): IDR
 frames through the all-intra wavefront (CU = TU = 32 in FASTEST, the
 split-RDO quadtree with NxN and intra TU split otherwise; a 64-CTU codes its
 four 32-blocks in z-order), P frames through the fixed-CU device stage
@@ -23,6 +24,8 @@ object of another package raises TypeError.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -33,6 +36,7 @@ from .entropy import headers, native_backend
 from .ops.inter_golden import derive_block_decisions_fast
 from .ops.sao import sao_stage_device
 from .pipeline import assemble, intra_torch, p_chunk, p_torch
+from .rate_control import RateControl
 
 SCENE_SAD_PER_PIXEL = 25.0     # mean best-ME-cost per pixel => scene cut
 
@@ -55,16 +59,13 @@ def _tree_decisions(depth_u, mv_u, nz_u, ctu_log2: int, n_cand: int = 5,
 
 def check_slice(c: EncoderConfig) -> None:
     """Raise NotImplementedError for any setting outside the ported slice:
-    cu_size 32 and 64 in every performance mode, fixed QP, rd_mode FULL,
-    IPPP, no WPP, one device, 8-bit. (The JAX package has no quadtree P
-    stage at cu_size 16: FAST and FULL fail there.)"""
+    cu_size 32 and 64 in every performance mode, any bitrate_mode, WPP or
+    not, rd_mode FULL, IPPP, one device, 8-bit. (The JAX package has no
+    quadtree P stage at cu_size 16: FAST and FULL fail there.)"""
     checks = (
         (c.cu_size == 16, f"cu_size={c.cu_size} "
                           f"({c.performance_mode.name})"),
         (c.gop_size >= 2, f"gop_size={c.gop_size} (B frames)"),
-        (c.bitrate_mode != BitrateMode.FIXED_QP,
-         f"bitrate_mode={c.bitrate_mode.name}"),
-        (c.wpp, "wpp=True"),
         (c.wpp_shards > 1, f"wpp_shards={c.wpp_shards}"),
         (c.rd_mode != RDMode.FULL, f"rd_mode={c.rd_mode.name}"),
         (c.bit_depth != 8, f"bit_depth={c.bit_depth}"),
@@ -132,9 +133,22 @@ class HomerEncoder:
                                    and c.max_inter_tr_depth >= 1),
             init_qp=c.qp, sign_hiding=c.sign_hiding,
             deblocking_disabled=not c.deblocking, num_ref_frames=1,
-            wpp_enabled=False, sao_enabled=c.sample_adaptive_offset,
+            wpp_enabled=c.wpp, sao_enabled=c.sample_adaptive_offset,
             cb_qp_offset=c.chroma_qp_offset,
             cr_qp_offset=c.chroma_qp_offset)
+        # rate control: host-side scalar state, queried in the reference's
+        # order (the QP trajectory depends on it)
+        self._rc = (None if c.bitrate_mode == BitrateMode.FIXED_QP
+                    else RateControl(c))
+        # per-CTU-row QPs (cu_qp_delta, one quantisation group per CTB)
+        # whenever rate control runs on the quadtree path; each row's plan
+        # comes from the previous frame's bits per row
+        self._row_qp_on = self._rc is not None and self.inter_split
+        self._prev_row_load = None
+        self._prev_row_bits = None
+        if self._row_qp_on:
+            self.params = dataclasses.replace(
+                self.params, cu_qp_delta_enabled=True, cu_qp_delta_depth=0)
         self.poc = 0
         self.last_idr = 0
         self._ref = None           # decoded reference planes, on the device
@@ -188,7 +202,8 @@ class HomerEncoder:
         is_idr = (self.poc == 0 or force_idr
                   or (c.intra_period > 0
                       and (self.poc - self.last_idr) % c.intra_period == 0))
-        qp = int(np.clip(c.qp, 0, 51))
+        qp = int(np.clip(self._rc.frame_qp(is_idr) if self._rc else c.qp,
+                         0, 51))
         self.last_qp = qp
         self._scene_idr = False
         au, recon_padded = self._encode(yp, up, vp, is_idr, qp)
@@ -198,6 +213,8 @@ class HomerEncoder:
             self.last_idr = self.poc
         self.poc += 1
         self.frame_bytes.append(len(au))
+        if self._rc:
+            self._rc.end_frame(len(au) * 8, is_idr)
         if recon_padded is None:
             self.last_recon = None
         else:
@@ -208,12 +225,26 @@ class HomerEncoder:
                                    (c.height // 2, c.width // 2))))
         return au
 
+    def _scene_cut(self, qp: int) -> int:
+        """A P frame turned out to be a scene cut: mark it, re-target rate
+        control and ask it again, for an I frame, for the QP of the IDR
+        re-encode (`qp` at a fixed QP)."""
+        self._scene_idr = True
+        if self._rc is None:
+            return qp
+        self._rc.on_scene_change()
+        qp = int(np.clip(self._rc.frame_qp(True), 0, 51))
+        self.last_qp = qp
+        return qp
+
     def _encode(self, yp, up, vp, is_idr, qp):
         c = self.cfg
         size = self.ctu
         self._cur_dev = tuple(self._upload(p) for p in (yp, up, vp))
         ydev, udev, vdev = self._cur_dev
         if is_idr:
+            # the row-QP history does not survive an IDR
+            self._prev_row_load = self._prev_row_bits = None
             tu_depth = self.params.max_tr_depth_intra
             out = intra_torch.encode_frame_intra(
                 ydev, udev, vdev, B=size, qp=qp, sign_hiding=c.sign_hiding,
@@ -249,7 +280,7 @@ class HomerEncoder:
         elif self.inter_split:
             au = self._encode_p_tree(qp)
             if au is None:               # scene cut: re-encode as IDR
-                return self._encode(yp, up, vp, True, qp)
+                return self._encode(yp, up, vp, True, self._scene_cut(qp))
         else:
             out = p_torch.p_frame_device(
                 ydev, udev, vdev, *self._ref, B=size, qp=qp,
@@ -268,8 +299,8 @@ class HomerEncoder:
             if c.reinit_gop_on_scene_change:
                 ms = float(sad.astype(np.int64).mean())
                 if ms / (size * size) > SCENE_SAD_PER_PIXEL:
-                    self._scene_idr = True
-                    return self._encode(yp, up, vp, True, qp)
+                    return self._encode(yp, up, vp, True,
+                                        self._scene_cut(qp))
             lev_y = wire[:ny].reshape(nby, nbx, size, size)
             lev_u = wire[ny:ny + nc].reshape(nby, nbx, B2, B2)
             lev_v = wire[ny + nc:ny + 2 * nc].reshape(nby, nbx, B2, B2)
@@ -297,11 +328,14 @@ class HomerEncoder:
                     sign_hiding=c.sign_hiding,
                     tr_split=self.params.max_tr_depth_inter > 0,
                     intra_in_p=self.ctu == 32, cu8=self.inter_cu8,
-                    vis=(c.height, c.width), kernels=self.kernels)
+                    wpp=c.wpp, vis=(c.height, c.width), kernels=self.kernels)
 
-    def _tree_maps(self, depth_u, mv_u, nz_u, trd_u, intra_u, lev):
+    def _tree_maps(self, depth_u, mv_u, nz_u, trd_u, intra_u, lev,
+                   qp_rows=None):
         """Host decisions and syntax maps of one tree P frame from its unit
-        maps (intra units carry the luma mode in the MV's x slot)."""
+        maps (intra units carry the luma mode in the MV's x slot). With row
+        QPs, each CTU's cu_qp_delta target is its row's QP, and the frame's
+        luma nonzeros per CTU row become the load of the next plan."""
         is_intra = intra_u.astype(bool)
         imode_u = np.where(is_intra, mv_u[..., 0], 1)
         dec = _tree_decisions(depth_u, mv_u, nz_u, self.ctu_log2, 5,
@@ -309,9 +343,30 @@ class HomerEncoder:
         # intra-in-P CUs code TU = CU: the inter TU-split flag must not
         # leak into their transform tree
         trd_p = np.where(is_intra, 0, trd_u)
-        return native_backend.maps_from_p_units(
+        maps = native_backend.maps_from_p_units(
             depth_u, dec, *lev, tr_depth=trd_p, pred_intra=intra_u,
             intra_mode=imode_u)
+        if qp_rows is not None:
+            nby, nbx = self.ph // self.ctu, self.pw // self.ctu
+            maps["qp_ctu"] = np.repeat(np.asarray(qp_rows)[:, None], nbx,
+                                       1).astype(np.int8)
+            self._prev_row_load = (lev[0] != 0).reshape(nby, self.ctu,
+                                                        -1).sum((1, 2))
+        return maps
+
+    def _plan_rows(self, qp: int):
+        """This frame's per-CTU-row QPs from the last finished frame's bits
+        per row (None without row QPs)."""
+        if not self._row_qp_on:
+            return None
+        return self._rc.plan_rows(qp, self.ph // self.ctu,
+                                  self._prev_row_load, self._prev_row_bits)
+
+    def _row_bits_from(self, au: bytes, qp_rows) -> None:
+        """A frame's real bits, spread over its CTU rows by their load."""
+        if qp_rows is not None and self._prev_row_load is not None:
+            load = self._prev_row_load.astype(np.float64)
+            self._prev_row_bits = len(au) * 8 * load / max(load.sum(), 1.0)
 
     def _encode_p_tree(self, qp):
         """P frame through the inter CU quadtree device stage. Returns the
@@ -319,8 +374,11 @@ class HomerEncoder:
         IDR)."""
         c = self.cfg
         ctu = self.ctu
+        qp_rows = self._plan_rows(qp)
         out = p_torch.p_frame_tree_device(
             *self._cur_dev, *self._ref, qp=qp, deblock=c.deblocking,
+            qp_rows=(None if qp_rows is None
+                     else self._upload(qp_rows.astype(np.int32))),
             **self._tree_kwargs())
         uh, uw = self.ph // 4, self.pw // 4
         nu = uh * uw
@@ -335,7 +393,6 @@ class HomerEncoder:
         if c.reinit_gop_on_scene_change:
             ms = float(sad.astype(np.int64).mean())
             if ms / (ctu * ctu) > SCENE_SAD_PER_PIXEL:
-                self._scene_idr = True
                 return None
         lev = (wire[:npix].reshape(self.ph, self.pw),
                wire[npix:npix + npix // 4].reshape(self.ph // 2,
@@ -343,13 +400,15 @@ class HomerEncoder:
                wire[npix + npix // 4:npix + npix // 2].reshape(
                    self.ph // 2, self.pw // 2))
         maps = self._tree_maps(depth_u, mv_u, nz_u.astype(bool), trd_u,
-                               intra_u, lev)
+                               intra_u, lev, qp_rows)
         key = "ref" if c.deblocking else "recon"
         self._ref = (out[key + "_y"], out[key + "_u"], out[key + "_v"])
         sao_info = self._maybe_sao(qp, slice_p=True)
-        return assemble.assemble_p_au_from_maps(
+        au = assemble.assemble_p_au_from_maps(
             self.params, maps, poc=self.poc - self.last_idr, slice_qp=qp,
             sao_info=sao_info)
+        self._row_bits_from(au, qp_rows)
+        return au
 
     def _maybe_sao(self, qp, slice_p=False):
         """SAO on the loop-filtered reference: device stats, host numpy
@@ -369,7 +428,9 @@ class HomerEncoder:
         Runs of P frames go through the chunked device pipeline, one
         dispatch and one wire copy per `chunk` frames; up to
         `frame_pipeline_depth` chunks are in flight, so the host CABAC of
-        chunk k overlaps device work on chunk k+1. IDR frames (POC 0,
+        chunk k overlaps device work on chunk k+1. Rate control issues each
+        frame's QP, and plans its CTU rows, when its chunk is dispatched,
+        from the bits of the chunks finished by then. IDR frames (POC 0,
         intra_period boundaries, scene cuts) use the per-frame path."""
         c = self.cfg
         n = len(frames)
@@ -395,7 +456,8 @@ class HomerEncoder:
                     run_end = n
                 j = min(run_end, i + chunk)
                 idxs = list(range(i, j))
-                qps = [int(np.clip(c.qp, 0, 51)) for _ in idxs]
+                qps = [int(np.clip(self._rc.frame_qp(False) if self._rc
+                                   else c.qp, 0, 51)) for _ in idxs]
                 pend_q.append(self._dispatch_chunk(
                     [frames[k] for k in idxs], idxs, qps))
                 i = j
@@ -426,10 +488,16 @@ class HomerEncoder:
         ys, us, vs = (self._upload(np.stack([p[k] for p in padded]))
                       for k in range(3))
         qps_d = self._upload(np.asarray(qps, np.int32))
+        # every frame of the chunk is planned from the same (stale) history
+        row_plans = (np.stack([self._plan_rows(q) for q in qps])
+                     if self._row_qp_on else None)
         wires, denses, fy, fu, fv = p_chunk.p_chunk_device(
             ys, us, vs, *self._ref, qps_d, deblock=c.deblocking,
             sao=c.sample_adaptive_offset, cap=self._chunk_cap,
-            tree=self.inter_split, **self._tree_kwargs())
+            tree=self.inter_split,
+            qp_rows=(None if row_plans is None
+                     else self._upload(row_plans.astype(np.int32))),
+            **self._tree_kwargs())
         self._ref = (fy, fu, fv)
         host, done = wires, None
         if self._copy_stream is not None:
@@ -444,14 +512,14 @@ class HomerEncoder:
                 done = torch.cuda.Event()
                 done.record(self._copy_stream)
             wires.record_stream(self._copy_stream)
-        return idxs, qps, host, done, denses
+        return idxs, qps, host, done, denses, row_plans
 
     def _finish_chunk(self, pending, aus, frames):
         """Host side of one dispatched chunk: unpack, decisions, CABAC.
         Returns None, or 'scene' after a scene-cut re-encode."""
         c = self.cfg
         ctu = self.ctu
-        idxs, qps, host, done, denses = pending
+        idxs, qps, host, done, denses, row_plans = pending
         if done is not None:
             done.synchronize()
         wires_h = host.numpy()
@@ -464,7 +532,10 @@ class HomerEncoder:
                 ms = float(w["sad"].astype(np.int64).mean())
                 if ms / (ctu * ctu) > SCENE_SAD_PER_PIXEL:
                     # scene cut: this frame and the rest of the chunk are
-                    # re-encoded per frame, IDR first
+                    # re-encoded per frame, IDR first (the QPs issued for
+                    # the chunks in flight stay counted by rate control)
+                    if self._rc:
+                        self._rc.on_scene_change()
                     for k in idxs[row_i:]:
                         aus[k] = self.encode_frame(*frames[k],
                                                    force_idr=(k == fi))
@@ -492,8 +563,9 @@ class HomerEncoder:
                 nz = (np.any(lev_y.reshape(uh, 4, uw, 4) != 0, axis=(1, 3))
                       | np.any(lev_u.reshape(uh, 2, uw, 2) != 0, axis=(1, 3))
                       | np.any(lev_v.reshape(uh, 2, uw, 2) != 0, axis=(1, 3)))
+            qp_rows = None if row_plans is None else row_plans[row_i]
             maps = self._tree_maps(depth_u, mv_u, nz, trd_u, intra_u,
-                                   (lev_y, lev_u, lev_v))
+                                   (lev_y, lev_u, lev_v), qp_rows)
             sao_info = None
             if c.sample_adaptive_offset:
                 pp = w["sao_pp"]
@@ -509,6 +581,9 @@ class HomerEncoder:
             self.last_qp = qp
             self.poc += 1
             self.frame_bytes.append(len(au))
+            self._row_bits_from(au, qp_rows)
+            if self._rc:
+                self._rc.end_frame(len(au) * 8, False)
         return None
 
     # ------------------------------------------------------------------

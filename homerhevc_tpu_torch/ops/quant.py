@@ -88,8 +88,9 @@ def sign_bit_hiding(levels: torch.Tensor, coeffs: torch.Tensor, qp,
     lead = levels.shape[:-2]
     L = int(math.prod(lead)) if lead else 1
     G = (n * n) // 16
-    q = _qp(qp, levels)
-    if q.dim():
+    q = (torch.full((), qp, dtype=I32, device=dev) if isinstance(qp, int)
+         else qp.to(I32))
+    if q.dim():                          # per block: one QP per lead index
         q = torch.broadcast_to(q.reshape(q.shape + (1,) * (len(lead)
                                                            - q.dim())),
                                lead).reshape(L, 1, 1)

@@ -3,7 +3,7 @@ on the device.
 
 Port of homerhevc_tpu/pipeline/p_chunk.py for the fixed-CU path
 (`tree=False`) and the CU-quadtree path (`tree=True`, CTU 32 or 64, down to
-8x8 CUs with `cu8`), at a fixed QP.
+8x8 CUs with `cu8`, per-CTU-row QPs with and without WPP).
 The reference's `lax.scan` over K frames becomes a Python loop of
 batched tensor ops whose carry — the deblocked, SAO-filtered reference
 planes — never leaves the device. Each frame yields one compacted int32
@@ -117,13 +117,16 @@ def p_chunk_device(ys, us, vs, ref_y, ref_u, ref_v, qps, *, ctu: int,
                    search: int, me_precision: int, sign_hiding: bool,
                    deblock: bool, sao: bool, cap: int, tree: bool = False,
                    tr_split: bool = False, intra_in_p: bool = False,
-                   cu8: bool = False, vis=None, kernels: bool = True):
+                   cu8: bool = False, qp_rows=None, wpp: bool = False,
+                   vis=None, kernels: bool = True):
     """Encode K consecutive P frames on the device.
 
     ys (K, H, W) uint8 etc., ref_* uint8 planes, qps (K,) int32 on the
     device. `tree` selects the CU-quadtree stage (with `tr_split`,
-    `intra_in_p`, 8x8 CUs `cu8` and the visible size `vis`) over the
-    fixed-CU one. Returns
+    `intra_in_p`, 8x8 CUs `cu8`, the visible size `vis`, and with
+    `qp_rows` (K, H // ctu) int32 one QP per CTU row of each frame, whose
+    decoded-QP model follows `wpp`) over the fixed-CU one, which codes each
+    frame at its QP in `qps`. Returns
     (wires (K, L) int32, denses (K, D) int16 dense level planes for the
     capacity-overflow fallback, final reference planes)."""
     K, H, W = ys.shape
@@ -140,8 +143,9 @@ def p_chunk_device(ys, us, vs, ref_y, ref_u, ref_v, qps, *, ctu: int,
             res = p_torch._p_stage_tree(
                 y, u, v, ryp, rup, rvp, ctu=ctu, qp=qp, search=search,
                 me_precision=me_precision, sign_hiding=sign_hiding,
-                tr_split=tr_split, intra_in_p=intra_in_p, cu8=cu8, vis=vis,
-                kernels=kernels)
+                tr_split=tr_split, intra_in_p=intra_in_p, cu8=cu8,
+                qp_rows=None if qp_rows is None else qp_rows[k], wpp=wpp,
+                vis=vis, kernels=kernels)
             depth_u, trd_u = res["depth_u"], res["trd_u"]
             intra_u, mv_u = res["pred_intra_u"], res["mv_u"]
             lev = (res["lev_y"], res["lev_u"], res["lev_v"])

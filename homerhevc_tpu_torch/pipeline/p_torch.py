@@ -3,11 +3,12 @@ merge/skip RD, MC and residual coding, on a fixed CU = B grid or as an inter
 CU quadtree (CTU 32 or 64 -> 16, or -> 8) with the inter residual quadtree
 and, at CTU 32, the per-CU intra fallback.
 
-Port of homerhevc_tpu/pipeline/p_jax.py for CTU 32 and 64 at a fixed QP:
-`_p_stage` (dense branch), `_me_hier` (sizes 8 to 64), `_level_encode`
-(S 8 to 64, `vis`, `tr_split`; no row QPs), `_p_stage_tail`,
-`_p_stage_tree` (with `cu8`), `p_frame_device`, `p_frame_tree_device`,
-`deblock_intra_device`. Inter prediction reads only the previous decoded
+Port of homerhevc_tpu/pipeline/p_jax.py for CTU 32 and 64: `_p_stage`
+(dense branch), `_me_hier` (sizes 8 to 64), `_level_encode` (S 8 to 64,
+`vis`, `tr_split`, per-CTU-row QPs), `_p_stage_tail`, `_p_stage_tree` (with
+`cu8`, row QPs and the decoded-QP maps with and without WPP),
+`p_frame_device`, `p_frame_tree_device`, `deblock_intra_device`. Inter
+prediction reads only the previous decoded
 frame, so every block is independent and the whole frame runs as batched
 tensor ops with the block axis first: (nb, ...). Two steps go through
 hand-written CUDA kernels on the card: the integer SAD sweep of the fixed-CU
@@ -117,7 +118,7 @@ def _p_stage(y_pad, u_pad, v_pad, ry, ru, rv, *, B: int, qp, search: int,
 
 def _level_encode(cur, u_pad, v_pad, ry, ru, rv, ivy, ivx, *, S, qp, qp_c,
                   lam, search, me_precision, sign_hiding, tr_split=False,
-                  vis=None, kernels: bool = True):
+                  qp_rows=None, vis=None, kernels: bool = True):
     """Subpel refinement + merge/skip RD + MC + residual coding for every
     S-sized block (S in {8, 16, 32, 64}; a 64-block codes its residual as
     four 32-TBs, its chroma as four 16-TBs, each with its own skip-vs-code
@@ -126,7 +127,9 @@ def _level_encode(cur, u_pad, v_pad, ry, ru, rv, ivy, ivx, *, S, qp, qp_c,
     * (level-bit estimate + MV bits)) and, with `tr_split` at S 32, the
     per-CU choice `trd` of coding the residual as four half-size TBs.
     `vis` = (height, width) of the visible picture: no residual is spent
-    on the padding beyond it."""
+    on the padding beyond it. `qp_rows` (one QP per CTU row) gives every
+    block its row's QP for quantisation, sign hiding and the RD lambdas;
+    the ME lambda `lam` stays the frame's."""
     H, W = cur.shape
     nby, nbx = H // S, W // S
     nb = nby * nbx
@@ -140,6 +143,10 @@ def _level_encode(cur, u_pad, v_pad, ry, ru, rv, ivy, ivx, *, S, qp, qp_c,
     bi = torch.arange(nb, device=dev, dtype=I32)
     r = bi // nbx
     c = bi % nbx
+    if qp_rows is not None:
+        # per-CTU-row rate control: each block codes with its row's QP
+        qp = qp_rows.to(I32)[(r * S) // (H // qp_rows.shape[0])]   # (nb,)
+        qp_c = tables.chroma_qp_t(qp)
     vy = ivy.reshape(-1).to(I32)
     vx = ivx.reshape(-1).to(I32)
 
@@ -291,10 +298,11 @@ def _level_encode(cur, u_pad, v_pad, ry, ru, rv, ivy, ivx, *, S, qp, qp_c,
     def rd_zero(orig, pred, lev, rec, qpq):
         # skip-vs-code RD per TB: drop the residual when prediction alone
         # costs less in D + lambda*R
-        lamf = lam_full_t[qpq]
         ssd_c = ((orig - rec) * (orig - rec)).sum(dim=(-1, -2))
         ssd_s = ((orig - pred) * (orig - pred)).sum(dim=(-1, -2))
         bits = torch.clamp(tables.level_bits_est_t(lev), max=16383)
+        lamf = lam_full_t[qpq]              # 0-d, or (nb,) with row QPs
+        lamf = lamf.reshape(lamf.shape + (1,) * (bits.dim() - lamf.dim()))
         keep = (ssd_c + (((lamf >> 4) * bits) >> 4) < ssd_s)[..., None, None]
         return torch.where(keep, lev, 0), torch.where(keep, rec, pred)
 
@@ -550,13 +558,18 @@ def worst_n(cost: torch.Tensor, n_sel: int) -> torch.Tensor:
     return torch.sort(cost, descending=True, stable=True).indices[:n_sel]
 
 
-def _upu(a: torch.Tensor, S: int) -> torch.Tensor:
-    """Block grid (at block size S) -> 4x4-unit grid."""
-    k = S // 4
+def _up(a: torch.Tensor, k: int) -> torch.Tensor:
+    """Each entry of a 2-D grid repeated k x k times."""
     return a.repeat_interleave(k, 0).repeat_interleave(k, 1)
 
 
-def _intra_in_p(cur, u_pad, v_pad, rec, c32eff, *, qp, lamf, sign_hiding):
+def _upu(a: torch.Tensor, S: int) -> torch.Tensor:
+    """Block grid (at block size S) -> 4x4-unit grid."""
+    return _up(a, S // 4)
+
+
+def _intra_in_p(cur, u_pad, v_pad, rec, c32eff, *, qp, lamf, sign_hiding,
+                qp_rows=None):
     """Per-CU intra fallback of the tree P stage (CTU 32): whole CTUs whose
     best intra-32 encode beats the tree's chosen inter cost.
 
@@ -567,9 +580,10 @@ def _intra_in_p(cur, u_pad, v_pad, rec, c32eff, *, qp, lamf, sign_hiding):
     4-colour cascade so that no accepted CU's reference ring touches
     another accepted CU: every neighbour an accepted CU predicts from keeps
     its inter reconstruction, and the order-free batch equals the decoder's
-    sequential result. Returns (acc (nby, nbx) bool, mode (nby, nbx),
-    luma (lev, rec) (nby, nbx, 32, 32), [(lev, rec) (nby, nbx, 16, 16) for U
-    and V])."""
+    sequential result. With `qp_rows` each candidate codes at its CTU row's
+    QP; the RD lambda `lamf` stays the frame's. Returns (acc (nby, nbx)
+    bool, mode (nby, nbx), luma (lev, rec) (nby, nbx, 32, 32), [(lev, rec)
+    (nby, nbx, 16, 16) for U and V])."""
     from .intra_torch import encode_block_one_mode
     H, W = cur.shape
     dev = cur.device
@@ -599,6 +613,8 @@ def _intra_in_p(cur, u_pad, v_pad, rec, c32eff, *, qp, lamf, sign_hiding):
     # worst-N gating: intra can only win where inter is poor
     n_sel = min(nb_all, max(128, nb_all // 8))
     sel_idx = worst_n(c32eff.reshape(-1), n_sel)
+    if qp_rows is not None:
+        qp = qp_rows.to(I32)[sel_idx // nbx]         # (N,) each CTU's row
     topv, leftv, cornr = (t[sel_idx] for t in rings(recy, 32))
     o = _blocks(cur, 32)[sel_idx]
     hl_s, ht_s = hl[sel_idx], ht[sel_idx]
@@ -680,19 +696,22 @@ def _intra_in_p(cur, u_pad, v_pad, rec, c32eff, *, qp, lamf, sign_hiding):
 def _p_stage_tree(y_pad, u_pad, v_pad, ry, ru, rv, *, ctu: int, qp,
                   search: int, me_precision: int, sign_hiding: bool,
                   tr_split: bool = False, intra_in_p: bool = False,
-                  cu8: bool = False, vis=None, kernels: bool = True):
+                  cu8: bool = False, qp_rows=None, wpp: bool = False,
+                  vis=None, kernels: bool = True):
     """Inter CU quadtree P stage (CTU 32 or 64 -> 16, or -> 8 with `cu8`;
-    PU = TU = CU unless `tr_split`), the reference's `_p_stage_tree` at a
-    fixed QP.
+    PU = TU = CU unless `tr_split`), the reference's `_p_stage_tree`.
 
     One integer search for all levels (hierarchical above HIER_THRESHOLD,
     else the dense SAD grid sweep at the finest level with the parents'
     grids pooled from it); every level is subpel-refined and residual-coded
     batched, and the split choice is a dense masked select over the node
     costs, bottom up. `intra_in_p` (CTU 32 only) adds the per-CU intra
-    fallback. Returns the unit maps (4x4 units), the selected level planes
-    and reconstruction, and the one-buffer host wire of the per-frame
-    path."""
+    fallback. `qp_rows` (H // ctu,) codes each CTU row at its own QP
+    (cu_qp_delta; the ME lambda and the split overhead stay at the frame
+    QP `qp`, the slice QP), and `wpp` selects the decoder's QP prediction
+    with entropy sync (see `decoded_qp_maps`). Returns the unit maps (4x4
+    units), the decoded-QP maps, the selected level planes and
+    reconstruction, and the one-buffer host wire of the per-frame path."""
     if ctu not in (32, 64):
         raise NotImplementedError(f"tree P stage at ctu={ctu} (32 and 64 are "
                                   "ported)")
@@ -702,6 +721,9 @@ def _p_stage_tree(y_pad, u_pad, v_pad, ry, ru, rv, *, ctu: int, qp,
     qp_c = tables.chroma_qp_t(qp)
     lam = const(tables.LAMBDA_ME_FX_P, dev)[qp]
     lamf = const(tables.LAMBDA_FX_P, dev)[qp]
+    if qp_rows is not None and tuple(qp_rows.shape) != (H // ctu,):
+        raise ValueError(f"qp_rows must hold one QP per CTU row "
+                         f"({H // ctu}), not {tuple(qp_rows.shape)}")
     cur = y_pad.to(I32)
     sizes = ((8,) if cu8 else ()) + (16, 32) + ((64,) if ctu == 64 else ())
 
@@ -731,7 +753,7 @@ def _p_stage_tree(y_pad, u_pad, v_pad, ry, ru, rv, *, ctu: int, qp,
                                qp=qp, qp_c=qp_c, lam=lam, search=search,
                                me_precision=me_precision,
                                sign_hiding=sign_hiding, tr_split=tr_split,
-                               vis=vis, kernels=kernels)
+                               qp_rows=qp_rows, vis=vis, kernels=kernels)
         enc[S]["icost"] = icost
 
     # bottom-up split select: a node splits when its four children's best
@@ -793,7 +815,7 @@ def _p_stage_tree(y_pad, u_pad, v_pad, ry, ru, rv, *, ctu: int, qp,
     if intra_in_p and ctu == 32:
         acc, im, (ilev, irec), outs_c = _intra_in_p(
             cur, u_pad, v_pad, rec, best[32], qp=qp, lamf=lamf,
-            sign_hiding=sign_hiding)
+            sign_hiding=sign_hiding, qp_rows=qp_rows)
 
         def sub_plane(plane, blocks_new, S):
             m = acc.repeat_interleave(S, 0).repeat_interleave(S, 1)
@@ -832,6 +854,13 @@ def _p_stage_tree(y_pad, u_pad, v_pad, ry, ru, rv, *, ctu: int, qp,
     ly16 = lev_yp.to(torch.int16)
     lu16 = lev_up.to(torch.int16)
     lv16 = lev_vp.to(torch.int16)
+    # the reference models CU QPs per 16x16 block, which is exact unless
+    # 8x8 CUs are coded; the port keeps that model at CTU 32 (its AUs equal
+    # the reference's) and, at CTU 64, where the reference has none, models
+    # 8x8 CUs exactly
+    qp_ctu, qp_u = decoded_qp_maps(qp, qp_rows, ctu=ctu, nz_u=nz,
+                                   depth_u=depth_u, wpp=wpp,
+                                   block=8 if cu8 and ctu == 64 else 16)
     sad = enc[ctu]["icost"]
     meta = torch.cat([depth_u.reshape(-1), mv_u.reshape(-1).to(I32),
                       nz.reshape(-1), trd_u.reshape(-1),
@@ -839,11 +868,8 @@ def _p_stage_tree(y_pad, u_pad, v_pad, ry, ru, rv, *, ctu: int, qp,
     u8 = torch.uint8
     return dict(
         depth_u=depth_u, mv_u=mv_u.to(I32), cbf_u=cbf_u, trd_u=trd_u,
-        pred_intra_u=pred_intra_u,
-        # decoded-QP maps at a fixed QP: per CTU (syntax) and per 16-block
-        # (deblocking)
-        qp_ctu=qp.expand(H // ctu, W // ctu), qp16=qp.expand(H // 16, W // 16),
-        sad=sad,
+        pred_intra_u=pred_intra_u, qp_ctu=qp_ctu, qp16=qp_u[::4, ::4],
+        qp_u=qp_u, sad=sad,
         lev_y=ly16, lev_u=lu16, lev_v=lv16,
         wire=torch.cat([ly16.reshape(-1), lu16.reshape(-1), lv16.reshape(-1),
                         meta.view(torch.int16)]),
@@ -851,14 +877,85 @@ def _p_stage_tree(y_pad, u_pad, v_pad, ry, ru, rv, *, ctu: int, qp,
     )
 
 
+@functools.lru_cache(maxsize=None)
+def _zorder(hb: int, wb: int, k: int) -> np.ndarray:
+    """Z-order index of every block inside its CTB of k x k blocks."""
+    by = (np.arange(hb) % k)[:, None]
+    bx = (np.arange(wb) % k)[None, :]
+    z = np.zeros((hb, wb), np.int32)
+    for b in range(k.bit_length()):
+        z |= (((by >> b) & 1) << (2 * b + 1)) | (((bx >> b) & 1) << (2 * b))
+    return z
+
+
+def decoded_qp_maps(qp, qp_rows, *, ctu: int, nz_u, depth_u, wpp: bool,
+                    block: int = 16):
+    """The QPs a decoder assigns to a tree P frame coded with per-CTU-row
+    targets `qp_rows` (one quantisation group per CTB): `qp_ctu` (H/ctu,
+    W/ctu), what the syntax carries, and `qp_u` (H/4, W/4), what the
+    deblocking filter reads. Both are the frame QP `qp` without row plans.
+
+    A CTB with any coded residual (`nz_u`, 4x4 units, Y or Cb or Cr) codes
+    cu_qp_delta and takes its row's target; an uncoded one keeps the
+    prediction, which is the QP of the last coded CTB before it in its row,
+    else the row's start value: the slice QP on every row with WPP (entropy
+    sync resets the predictor), the last coded row's target without it.
+    Inside a CTB the decoder assigns QPs per CU as it parses, so CUs before
+    the first coded CU in z-order keep the prediction. CUs are read from
+    `depth_u` in blocks of `block` (8 or 16) samples: a CU smaller than a
+    block counts as the whole block, so 16 is exact unless 8x8 CUs are
+    coded and 8 always is."""
+    dev = nz_u.device
+    uh, uw = nz_u.shape
+    nby, nbx = uh * 4 // ctu, uw * 4 // ctu
+    if qp_rows is None:
+        return qp.expand(nby, nbx), qp.expand(uh, uw)
+    g = ctu // 4
+    coded = (nz_u != 0).reshape(nby, g, nbx, g).any(3).any(1)
+    rows = qp_rows.to(I32)
+    row_t = rows[:, None].expand(nby, nbx)
+    ci = coded.to(I32)
+    seen_before = (torch.cumsum(ci, 1) - ci) > 0
+    if wpp:
+        start = qp.expand(nby)
+    else:
+        # the target of the last coded row strictly above, else the slice QP
+        ri = torch.arange(nby, device=dev)
+        last = torch.cummax(torch.where(coded.any(1), ri, -1), 0).values
+        last = torch.cat([last.new_full((1,), -1), last[:-1]])
+        start = torch.where(last >= 0, rows[last.clamp(min=0)], qp)
+    pred = torch.where(seen_before, row_t, start[:, None])
+    qp_ctu = torch.where(coded, row_t, pred)
+
+    # per block: before or from the CTB's first coded CU in z-order
+    g = block // 4                                  # units per block
+    hb, wb = uh // g, uw // g
+    k = ctu // block
+    nzb = (nz_u != 0).reshape(hb, g, wb, g).any(3).any(1)
+    db = depth_u[::g, ::g]
+    m = ((torch.full_like(db, ctu) >> db) // block).clamp(min=1)  # CU side
+    z = const(_zorder(hb, wb, k), dev)
+    cu_first = z & ~(m * m - 1)               # z of the CU's first block
+    cu_coded = nzb
+    s = 1
+    while s < k:
+        s *= 2
+        pooled = nzb.reshape(hb // s, s, wb // s, s).any(3).any(1)
+        cu_coded = torch.where(m == s, _up(pooled, s), cu_coded)
+    first = torch.where(cu_coded, cu_first, 1 << 20)
+    first = first.reshape(nby, k, nbx, k).amin(3).amin(1)
+    qp_b = torch.where(cu_first >= _up(first, k), _up(row_t, k),
+                       _up(pred, k))
+    return qp_ctu, _up(qp_b, g)
+
+
 def tree_deblock(rec, res, ctu: int):
     """Loop filter of a tree P frame from its unit maps."""
     bs_v, bs_h = dbk.inter_bs_from_units(
         res["depth_u"], res["mv_u"], res["cbf_u"], ctu.bit_length() - 1,
         trd_u=res["trd_u"], intra_u=res["pred_intra_u"])
-    qp_map = res["qp16"].repeat_interleave(4, 0).repeat_interleave(4, 1)
     return dbk.deblock_frame(rec[0], rec[1], rec[2], bs_v=bs_v, bs_h=bs_h,
-                             qp_map=qp_map)
+                             qp_map=res["qp_u"])
 
 
 def inter_deblock(rec, mvs, lev_y, qp, B: int):
@@ -902,18 +999,20 @@ def p_frame_tree_device(y_pad, u_pad, v_pad, ref_y, ref_u, ref_v, *, ctu: int,
                         qp, search: int, me_precision: int,
                         deblock: bool = False, sign_hiding: bool = False,
                         tr_split: bool = False, intra_in_p: bool = False,
-                        cu8: bool = False, vis=None, kernels: bool = True):
+                        cu8: bool = False, qp_rows=None, wpp: bool = False,
+                        vis=None, kernels: bool = True):
     """One quadtree P frame against the previous decoded frame (uint8
     planes): `_p_stage_tree` plus the loop filter of the selected
-    reconstruction. Returns the reference's p_frame_tree_device dict."""
+    reconstruction at the decoded QPs. Returns the reference's
+    p_frame_tree_device dict."""
     ry = edge_pad(ref_y.to(torch.int16), PAD)
     ru = edge_pad(ref_u.to(torch.int16), PAD // 2)
     rv = edge_pad(ref_v.to(torch.int16), PAD // 2)
     result = _p_stage_tree(y_pad, u_pad, v_pad, ry, ru, rv, ctu=ctu, qp=qp,
                            search=search, me_precision=me_precision,
                            sign_hiding=sign_hiding, tr_split=tr_split,
-                           intra_in_p=intra_in_p, cu8=cu8, vis=vis,
-                           kernels=kernels)
+                           intra_in_p=intra_in_p, cu8=cu8, qp_rows=qp_rows,
+                           wpp=wpp, vis=vis, kernels=kernels)
     if deblock:
         rec = tuple(result[k].to(I32)
                     for k in ("recon_y", "recon_u", "recon_v"))

@@ -5,7 +5,8 @@ tests/fixtures/torch_port_aus.json holds the SHA-256 and length of every AU
 the JAX package writes for each of RUNS (tools/make_torch_fixtures.py writes
 it, with the same RUNS and the same configuration keywords); the port's AUs
 must hash the same. All runs share quarter-pel, fixed QP 32, deblocking +
-SAO + sign hiding, intra_period 100, frame_pipeline_depth 2.
+SAO + sign hiding, intra_period 100, frame_pipeline_depth 2; the runs
+under rate control start at QP 32 and move from there.
 `slice_kwargs` is the fixed-CU configuration (cu_size 32,
 FASTEST_COMPUTATION, search 16); `fast_kwargs` is the configuration the
 repository's bench.py times (FAST_COMPUTATION, search 64: CU quadtree P
@@ -28,7 +29,13 @@ configuration (also at a size that needs padding, 120x88; with search 16
 the clip's motion leaves the window, so that run re-encodes frames of a
 chunk as IDR: scene cuts), of the CTU-64 one on synth_clip(192, 128, 4,
 seed=3) (2 x 3 CTUs, so a wavefront diagonal holds two lanes), and of the
-FULL one at search 16.
+FULL one at search 16. Rate control and WPP: CBR, VBR, CBR + WPP and WPP
+alone in FAST at 128x96, VBR in FASTEST, CBR with scene cuts at 120x88
+(search 16), CBR in FULL at 192x128 and in FASTEST at CTU 64, and the two
+720p paths of chip_smoke.py, `cbr_wpp_720p` and `vbr_fastest_720p`
+(synth_clip(1280, 720, 17, seed=0), chunk 8, 400 kbps). DECODER_RUNS are
+CBR runs of the CTU-64 quadtree path, which the JAX package cannot code:
+they are held to libde265 alone.
 INTRA_CASES are single frames (`intra_frame`) through the split-RDO IDR
 stage alone; the fixture holds a SHA-256 per output array for them.
 """
@@ -39,9 +46,14 @@ import hashlib
 
 import numpy as np
 
-from ..config import EncoderConfig, PerformanceMode
+from ..config import BitrateMode, EncoderConfig, PerformanceMode
 from ..validate import de265
 from .synth import synth_clip
+
+# rate-control settings of the small runs (kbps, kbit): a bitrate and
+# buffer a few P frames of these clips overrun
+_RC8 = dict(bitrate=8, vbv_size=16, vbv_init=8)
+_RC16 = dict(bitrate=16, vbv_size=32, vbv_init=16)
 
 RUNS = {
     "small": dict(width=128, height=96, frames=6, seed=3, chunk=3),
@@ -95,6 +107,52 @@ RUNS = {
                          config="full"),
     "full32_s16_small": dict(width=128, height=96, frames=4, seed=3, chunk=3,
                              config="full", over=dict(me_search_range=16)),
+    # rate control: settings under which the small runs take three or more
+    # slice QPs, plan row QPs that differ within a frame, and run the VBV
+    # buffer dry (its guardrails raise the QP)
+    "cbr_fast_small": dict(width=128, height=96, frames=10, seed=3, chunk=2,
+                           config="fast", over=dict(_RC8, bitrate_mode="CBR")),
+    "vbr_fast_small": dict(width=128, height=96, frames=10, seed=3, chunk=2,
+                           config="fast", over=dict(_RC8, bitrate_mode="VBR")),
+    "cbr_wpp_small": dict(width=128, height=96, frames=10, seed=3, chunk=2,
+                          config="fast",
+                          over=dict(_RC8, bitrate_mode="CBR", wpp=True)),
+    "wpp_fast_small": dict(width=128, height=96, frames=4, seed=3, chunk=3,
+                           config="fast", over=dict(wpp=True)),
+    "vbr_fastest_small": dict(width=128, height=96, frames=5, seed=3,
+                              chunk=2, over=dict(_RC8, bitrate_mode="VBR")),
+    "cbr_scene_small": dict(width=120, height=88, frames=8, seed=3,
+                            chunk=2, config="fast",
+                            over=dict(_RC8, bitrate_mode="CBR",
+                                      me_search_range=16)),
+    "cbr_full_small": dict(width=192, height=128, frames=8, seed=3, chunk=2,
+                           config="full",
+                           over=dict(_RC16, bitrate_mode="CBR")),
+    "cbr_fastest64_small": dict(width=192, height=128, frames=5, seed=3,
+                                chunk=2, config="ctu64",
+                                over=dict(_RC16, bitrate_mode="CBR",
+                                          performance_mode=(
+                                              "FASTEST_COMPUTATION"))),
+    "cbr_wpp_720p": dict(width=1280, height=720, frames=17, seed=0, chunk=8,
+                         config="fast", over=dict(bitrate_mode="CBR",
+                                                  bitrate=400, wpp=True)),
+    "vbr_fastest_720p": dict(width=1280, height=720, frames=17, seed=0,
+                             chunk=8, over=dict(bitrate_mode="VBR",
+                                                bitrate=400)),
+}
+
+# Runs the JAX package cannot code (it raises TypeError building the
+# decoded-QP maps of the quadtree path at CTU 64 under rate control): the
+# port's streams are held to libde265 alone
+DECODER_RUNS = {
+    "cbr64_small": dict(width=192, height=128, frames=10, seed=3, chunk=2,
+                        config="ctu64", over=dict(_RC16, bitrate_mode="CBR",
+                                                  me_search_range=64)),
+    "cbr_full64_small": dict(width=192, height=128, frames=10, seed=3,
+                             chunk=2, config="ctu64",
+                             over=dict(_RC16, bitrate_mode="CBR",
+                                       performance_mode="FULL_COMPUTATION",
+                                       me_search_range=64)),
 }
 
 # single frames through encode_frame_intra(split_rdo=True): (width, height,
@@ -110,14 +168,17 @@ INTRA_KEYS = ("wire", "modes", "mode_units", "depth_units", "part_units",
               "recon_v")
 
 
-def slice_kwargs(width: int, height: int) -> dict:
+def slice_kwargs(width: int, height: int, **over) -> dict:
     """Keywords of the fixed-CU configuration, enums by name, so either
-    package can build its own EncoderConfig from them."""
-    return dict(width=width, height=height, qp=32, cu_size=32,
-                intra_period=100, me_search_range=16, sign_hiding=True,
-                deblocking=True, sample_adaptive_offset=True,
-                frame_pipeline_depth=2,
-                performance_mode="FASTEST_COMPUTATION")
+    package can build its own EncoderConfig from them, with `over`
+    replacing single settings."""
+    kw = dict(width=width, height=height, qp=32, cu_size=32,
+              intra_period=100, me_search_range=16, sign_hiding=True,
+              deblocking=True, sample_adaptive_offset=True,
+              frame_pipeline_depth=2,
+              performance_mode="FASTEST_COMPUTATION")
+    kw.update(over)
+    return kw
 
 
 def fast_kwargs(width: int, height: int, **over) -> dict:
@@ -150,9 +211,14 @@ _KWARGS = {None: slice_kwargs, "fast": fast_kwargs, "ctu64": ctu64_kwargs,
            "full": full_kwargs}
 
 
+def run_spec(name: str) -> dict:
+    """The entry of one of RUNS or DECODER_RUNS."""
+    return RUNS[name] if name in RUNS else DECODER_RUNS[name]
+
+
 def run_kwargs(name: str) -> dict:
-    """Configuration keywords of one of RUNS."""
-    r = RUNS[name]
+    """Configuration keywords of one of RUNS or DECODER_RUNS."""
+    r = run_spec(name)
     return _KWARGS[r.get("config")](r["width"], r["height"],
                                     **r.get("over", {}))
 
@@ -160,6 +226,8 @@ def run_kwargs(name: str) -> dict:
 def config_from(kw: dict) -> EncoderConfig:
     kw = dict(kw)
     kw["performance_mode"] = PerformanceMode[kw["performance_mode"]]
+    if "bitrate_mode" in kw:
+        kw["bitrate_mode"] = BitrateMode[kw["bitrate_mode"]]
     return EncoderConfig(**kw)
 
 
@@ -176,8 +244,9 @@ def run_config(name: str) -> EncoderConfig:
 
 
 def clip(name: str) -> list:
-    """The frames [(y, u, v), ...] of one of RUNS, made from its seed."""
-    r = RUNS[name]
+    """The frames [(y, u, v), ...] of one of RUNS or DECODER_RUNS, made
+    from its seed."""
+    r = run_spec(name)
     return list(synth_clip(r["width"], r["height"], r["frames"],
                            seed=r["seed"]))
 

@@ -45,6 +45,7 @@ import torch
 
 from homerhevc_tpu import tables as jtables
 from homerhevc_tpu.api import HomerEncoder as JaxEncoder
+from homerhevc_tpu.config import BitrateMode as JaxBitrate
 from homerhevc_tpu.config import EncoderConfig as JaxConfig
 from homerhevc_tpu.config import PerformanceMode as JaxMode
 from homerhevc_tpu.ops import deblock as jdbk
@@ -440,7 +441,7 @@ def check_decodes(name: str, aus, ref) -> None:
     from homerhevc_tpu_torch.validate import de265
     if not de265.available():
         return
-    r = fx.RUNS[name]
+    r = fx.run_spec(name)
     dec = de265.decode_annexb(b"".join(aus))
     assert len(dec) == len(aus)
     h, w = r["height"], r["width"]
@@ -510,6 +511,17 @@ SETUP_CASES = {
     "fastest_ctu64_tr0": dict(cu_size=64, max_intra_tr_depth=0,
                               max_inter_tr_depth=0,
                               performance_mode="FASTEST_COMPUTATION"),
+    # rate control and WPP: cu_qp_delta on the quadtree path only
+    "cbr_fast_ctu32": dict(cu_size=32, bitrate_mode="CBR",
+                           performance_mode="FAST_COMPUTATION"),
+    "vbr_full_ctu64": dict(cu_size=64, bitrate_mode="VBR",
+                           performance_mode="FULL_COMPUTATION"),
+    "cbr_fastest_ctu64": dict(cu_size=64, bitrate_mode="CBR",
+                              performance_mode="FASTEST_COMPUTATION"),
+    "wpp_fast_ctu64": dict(cu_size=64, wpp=True,
+                           performance_mode="FAST_COMPUTATION"),
+    "cbr_wpp_fast_ctu32": dict(cu_size=32, bitrate_mode="CBR", wpp=True,
+                               performance_mode="FAST_COMPUTATION"),
 }
 
 
@@ -519,11 +531,14 @@ def test_session_setup_matches_jax(case):
     kw.update(SETUP_CASES[case])
     port = HomerEncoder(fx.config_from(kw), device="cpu")
     ref = JaxEncoder(JaxConfig(**dict(
-        kw, performance_mode=JaxMode[kw["performance_mode"]])), backend="jax")
+        kw, performance_mode=JaxMode[kw["performance_mode"]],
+        **({"bitrate_mode": JaxBitrate[kw["bitrate_mode"]]}
+           if "bitrate_mode" in kw else {}))), backend="jax")
     try:
         for attr in ("intra_b", "ctu64", "inter_cu8", "intra_split",
-                     "inter_split", "pw", "ph"):
+                     "inter_split", "pw", "ph", "_row_qp_on"):
             assert getattr(port, attr) == getattr(ref, attr), attr
+        assert (port._rc is None) == (ref._rc is None)
         assert dataclasses.asdict(port.params) == dataclasses.asdict(
             ref.params)
     finally:
@@ -532,9 +547,6 @@ def test_session_setup_matches_jax(case):
 
 @pytest.mark.parametrize("field,value", [
     ("gop_size", 2),
-    ("bitrate_mode", BitrateMode.CBR),
-    ("bitrate_mode", BitrateMode.VBR),
-    ("wpp", True),
     ("wpp_shards", 2),
     ("rd_mode", RDMode.FAST),
     ("rd_mode", RDMode.DIST_ONLY),
@@ -547,3 +559,19 @@ def test_out_of_slice_settings_raise_ctu64(field, value):
         192, 128, performance_mode="FULL_COMPUTATION")), **{field: value})
     with pytest.raises(NotImplementedError, match=field):
         HomerEncoder(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("field,value", [
+    ("bitrate_mode", BitrateMode.CBR),
+    ("bitrate_mode", BitrateMode.VBR),
+    ("wpp", True),
+])
+def test_rate_control_and_wpp_admitted_ctu64(field, value):
+    # CTU 64 admits what CTU 32 admits: rate control with per-CTU-row QPs
+    # on the quadtree path (tests/test_torch_rc.py holds its streams), WPP
+    cfg = dataclasses.replace(fx.config_from(fx.ctu64_kwargs(
+        192, 128, performance_mode="FULL_COMPUTATION")), **{field: value})
+    enc = HomerEncoder(cfg, device="cpu")
+    rc = cfg.bitrate_mode != BitrateMode.FIXED_QP
+    assert enc.params.wpp_enabled == cfg.wpp
+    assert enc.params.cu_qp_delta_enabled == rc == enc._row_qp_on

@@ -15,6 +15,7 @@ originals, from seeded numpy inputs (numpy only plus the two packages).
                          HomerEncoder raises TypeError on the other
                          package's config
   utils.synth, ops.interp, PAD equal
+  rate_control           RateControl's methods the same source
 
 Tolerance: exact (integers and bytes).
 """
@@ -215,7 +216,7 @@ def _random_sao(rng, nby, nbx, mod, qp):
                 sao_luma=True, sao_chroma=True)
 
 
-@pytest.mark.parametrize("kind", ["idr", "p"])
+@pytest.mark.parametrize("kind", ["idr", "p", "p_dqp_wpp"])
 @pytest.mark.parametrize("size", [(64, 64), (128, 96)])
 def test_assemble_from_random_maps_equal(size, kind):
     w, h = size
@@ -225,7 +226,10 @@ def test_assemble_from_random_maps_equal(size, kind):
             (jheaders, jnative, jassemble, jinter, jsao),
             (theaders, tnative, tassemble, tinter, tsao)):
         rng = np.random.default_rng(seed)      # the same draws for both
-        params = _params(headers, w, h, sao_enabled=True)
+        # rate control's per-CTU-row QPs (cu_qp_delta) and WPP substreams
+        extra = (dict(cu_qp_delta_enabled=True, wpp_enabled=True)
+                 if kind == "p_dqp_wpp" else {})
+        params = _params(headers, w, h, sao_enabled=True, **extra)
         nby, nbx = h // 32, w // 32
         lev = (_random_levels(rng, (h, w), 0.02),
                _random_levels(rng, (h // 2, w // 2), 0.01),
@@ -247,6 +251,9 @@ def test_assemble_from_random_maps_equal(size, kind):
             has_resid = np.any(blk[0], axis=(-1, -2))
             dec, _ = inter.derive_block_decisions_fast(mvs, has_resid, 32, 5)
             maps = native.maps_from_p_arrays(mvs, dec, *blk, 32)
+            if extra:
+                maps["qp_ctu"] = np.repeat(rng.integers(
+                    24, 40, (nby, 1)), nbx, 1).astype(np.int8)
             aus.append(assemble.assemble_p_au_from_maps(
                 params, maps, poc=2, slice_qp=30, sao_info=sao_info))
     assert len(aus[0]) > 100
@@ -269,18 +276,28 @@ def _plans(kind):
     return pp.ctu_plans, jheaders.SLICE_P
 
 
-@pytest.mark.parametrize("kind", ["intra", "p"])
+@pytest.mark.parametrize("kind", ["intra", "p", "p_dqp_wpp"])
 def test_port_libhenc_matches_port_python_oracle(kind):
-    plans, slice_type = _plans(kind)
+    plans, slice_type = _plans(kind[:1] if kind != "intra" else kind)
+    extra = {}
+    if kind == "p_dqp_wpp":
+        # a cu_qp_delta target per CTU row, WPP substreams
+        plans = [dataclasses.replace(p, qp_ctu=27 + 4 * (p.y0 // 32))
+                 for p in plans]
+        extra = dict(cu_qp_delta_enabled=True, wpp_enabled=True)
     pt = dataclasses.replace(_params(theaders, 96, 64, qp=30),
-                             sign_hiding=False, deblocking_disabled=True)
+                             sign_hiding=False, deblocking_disabled=True,
+                             **extra)
     pj = dataclasses.replace(_params(jheaders, 96, 64, qp=30),
-                             sign_hiding=False, deblocking_disabled=True)
+                             sign_hiding=False, deblocking_disabled=True,
+                             **extra)
     oracle = tassemble.encode_slice_data(pt, plans, slice_qp=30,
                                          slice_type=slice_type, native=False)
     lib = tassemble.encode_slice_data(pt, plans, slice_qp=30,
                                       slice_type=slice_type)
-    assert len(oracle) > 50
+    # with WPP: (slice data, substream sizes), two CTU rows here
+    data = oracle[0] if extra else oracle
+    assert len(data) > 50 and (not extra or len(oracle[1]) == 2)
     assert lib == oracle
     assert lib == jassemble.encode_slice_data(pj, plans, slice_qp=30,
                                               slice_type=slice_type)
@@ -419,3 +436,22 @@ def test_synth_clip_equal():
                          tsynth_clip(128, 96, 3, seed=3)):
         for p, q in zip(want, got):
             np.testing.assert_array_equal(q, p)
+
+
+# ---------------------------------------------------------------------------
+# rate_control
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("method", ["__init__", "frame_target", "frame_qp",
+                                    "end_frame", "plan_rows",
+                                    "on_scene_change"])
+def test_rate_control_is_a_copy(method):
+    # the same code, line for line, in the port's own module (its behaviour
+    # against the original over 200 frames: tests/test_torch_rc.py)
+    import inspect
+
+    from homerhevc_tpu import rate_control as jrc
+    from homerhevc_tpu_torch import rate_control as trc
+    assert trc.RateControl is not jrc.RateControl
+    assert inspect.getsource(getattr(trc.RateControl, method)) == \
+        inspect.getsource(getattr(jrc.RateControl, method))

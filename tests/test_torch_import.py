@@ -22,6 +22,7 @@ PORT_MODULES = [
     "homerhevc_tpu_torch.config",
     "homerhevc_tpu_torch.device",
     "homerhevc_tpu_torch.tables",
+    "homerhevc_tpu_torch.rate_control",
     "homerhevc_tpu_torch.entropy.bitstream",
     "homerhevc_tpu_torch.entropy.cabac",
     "homerhevc_tpu_torch.entropy.syntax",

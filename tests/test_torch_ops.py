@@ -85,14 +85,20 @@ def test_sign_bit_hiding(n, scan_idx):
     rng = np.random.default_rng(100 + n + scan_idx)
     log2 = n.bit_length() - 1
     coeff = rng.integers(-2000, 2001, (12, n, n)).astype(np.int32)
-    for qp in (22, 37):
+    # a per-block QP (rate control's row QPs), also over blocks split in
+    # two TBs each, as the quadtree P stage codes them
+    row_qps = rng.integers(20, 40, (6,)).astype(np.int32)
+    for qp, shape in ((22, (12,)), (37, (12,)), (row_qps, (6, 2))):
+        c = coeff.reshape(shape + (n, n))
+        qj = qp if isinstance(qp, int) else jnp.asarray(qp)
         lev = np.asarray(J(jquant.quantize, log2_size=log2, is_intra=True)(
-            jnp.asarray(coeff), qp))
+            jnp.asarray(c), qj))
         want = J(jquant.sign_bit_hiding, log2_size=log2, scan_idx=scan_idx)(
-            jnp.asarray(lev), jnp.asarray(coeff), qp)
-        got = tquant.sign_bit_hiding(torch.as_tensor(lev.copy()),
-                                     torch.as_tensor(coeff), qp, log2,
-                                     scan_idx=scan_idx)
+            jnp.asarray(lev), jnp.asarray(c), qj)
+        got = tquant.sign_bit_hiding(
+            torch.as_tensor(lev.copy()), torch.as_tensor(c),
+            qp if isinstance(qp, int) else torch.as_tensor(qp), log2,
+            scan_idx=scan_idx)
         _eq(want, got)
         assert (np.asarray(want) != lev).any()   # SBH changed something
 

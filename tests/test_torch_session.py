@@ -11,7 +11,8 @@ versions) against homerhevc_tpu.api.HomerEncoder(backend="jax").
   * settings outside the ported configurations raise NotImplementedError
     (the quadtree configurations are in tests/test_torch_session_fast.py,
     CTU 64 and FULL_COMPUTATION in tests/test_torch_ctu64.py and
-    tests/test_torch_cu8.py).
+    tests/test_torch_cu8.py); CBR and WPP are admitted (their streams are
+    held in tests/test_torch_rc.py).
 
 Each package gets its own EncoderConfig, built from one keyword dictionary
 (the port refuses the other package's class). Tolerance: exact, byte for
@@ -131,8 +132,6 @@ def test_seed_reference_carry_over(small):
 @pytest.mark.parametrize("field,value", [
     ("cu_size", 16),
     ("gop_size", 2),
-    ("bitrate_mode", BitrateMode.CBR),
-    ("wpp", True),
     ("wpp_shards", 2),
     ("rd_mode", RDMode.FAST),
 ])
@@ -140,3 +139,16 @@ def test_out_of_slice_settings_raise(small, field, value):
     cfg = dataclasses.replace(small[3], **{field: value})
     with pytest.raises(NotImplementedError, match=field):
         HomerEncoder(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("field,value", [
+    ("bitrate_mode", BitrateMode.CBR),
+    ("wpp", True),
+])
+def test_rate_control_and_wpp_admitted(small, field, value):
+    # the fixed-CU path codes a QP per frame: no cu_qp_delta there
+    cfg = dataclasses.replace(small[3], **{field: value})
+    enc = HomerEncoder(cfg, device="cpu")
+    assert enc.params.wpp_enabled == cfg.wpp
+    assert not enc.params.cu_qp_delta_enabled
+    assert (enc._rc is None) == (cfg.bitrate_mode == BitrateMode.FIXED_QP)

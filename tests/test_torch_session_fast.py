@@ -213,9 +213,6 @@ def test_cu16_raises(mode):
 @pytest.mark.parametrize("field,value", [
     ("cu_size", 16),
     ("gop_size", 2),
-    ("bitrate_mode", BitrateMode.CBR),
-    ("bitrate_mode", BitrateMode.VBR),
-    ("wpp", True),
     ("wpp_shards", 2),
     ("rd_mode", RDMode.FAST),
     ("rd_mode", RDMode.DIST_ONLY),
@@ -225,6 +222,20 @@ def test_out_of_slice_settings_raise(field, value):
     cfg = dataclasses.replace(fx.fast_config(128, 96), **{field: value})
     with pytest.raises(NotImplementedError, match=field):
         HomerEncoder(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("field,value", [
+    ("bitrate_mode", BitrateMode.CBR),
+    ("bitrate_mode", BitrateMode.VBR),
+    ("wpp", True),
+])
+def test_rate_control_and_wpp_admitted(field, value):
+    # the quadtree path codes per-CTU-row QPs whenever rate control runs
+    cfg = dataclasses.replace(fx.fast_config(128, 96), **{field: value})
+    enc = HomerEncoder(cfg, device="cpu")
+    rc = cfg.bitrate_mode != BitrateMode.FIXED_QP
+    assert enc.params.wpp_enabled == cfg.wpp
+    assert enc.params.cu_qp_delta_enabled == rc == enc._row_qp_on
 
 
 def test_earlier_fixture_entries_did_not_move():

@@ -30,9 +30,12 @@ OUT = os.path.join(ROOT, "tests", "fixtures", "torch_port_aus.json")
 def jax_config_from(kw: dict):
     """Configuration keywords (enums by name) as the JAX package's own
     EncoderConfig."""
-    from homerhevc_tpu.config import EncoderConfig, PerformanceMode
+    from homerhevc_tpu.config import (BitrateMode, EncoderConfig,
+                                      PerformanceMode)
     kw = dict(kw)
     kw["performance_mode"] = PerformanceMode[kw["performance_mode"]]
+    if "bitrate_mode" in kw:
+        kw["bitrate_mode"] = BitrateMode[kw["bitrate_mode"]]
     return EncoderConfig(**kw)
 
 

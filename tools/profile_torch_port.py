@@ -1,6 +1,6 @@
 """Where the time goes in the torch port on one GPU at 1280x720.
 
-    python3 tools/profile_torch_port.py [fastest|fast|default|full64]
+    python3 tools/profile_torch_port.py [fastest|fast|default|full64|cbr]
                                         [--idr-ctus RxC] [--no-idr-profile]
                                         [--no-idr]
 
@@ -8,8 +8,10 @@
 `fast` (the default) the one the repository's bench.py times
 (FAST_COMPUTATION, search 64: quadtree P frames, split-RDO IDR), `default`
 the JAX package's default configuration (64x64 CTUs, FAST_COMPUTATION,
-search 16) and `full64` FULL_COMPUTATION at CTU 64, search 64 (8x8 inter
-CUs).
+search 16), `full64` FULL_COMPUTATION at CTU 64, search 64 (8x8 inter
+CUs), and `cbr` the `fast` configuration under CBR at 400 kbps with WPP:
+its P chunk codes per-CTU-row QPs, the frame QPs and row plans issued by
+the session's rate control after the IDR, as encode_frames issues them.
 
 For one P chunk of 8 frames (device stage only, no host CABAC) and for one
 IDR device stage, after a warm-up, torch.profiler (CPU + CUDA activities)
@@ -125,7 +127,7 @@ class StageClock:
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("config", nargs="?", default="fast",
-                    choices=("fastest", "fast", "default", "full64"))
+                    choices=("fastest", "fast", "default", "full64", "cbr"))
     ap.add_argument("--idr-ctus", default=None, metavar="RxC",
                     help="profile the IDR on the top-left R x C CTUs only "
                          "(default: 3x8 at CTU 32, 2x4 at CTU 64, 0x0 = "
@@ -154,6 +156,8 @@ def main(argv) -> int:
         "default": fx.ctu64_kwargs,
         "full64": lambda w, h: fx.ctu64_kwargs(
             w, h, performance_mode="FULL_COMPUTATION", me_search_range=64),
+        "cbr": lambda w, h: fx.fast_kwargs(
+            w, h, bitrate_mode="CBR", bitrate=400, wpp=True),
     }[args.config](1280, 720))
     print(f"configuration {args.config}: {cfg.performance_mode.name}, "
           f"cu_size {cfg.cu_size}, search {cfg.me_search_range}, on {card}",
@@ -169,14 +173,24 @@ def main(argv) -> int:
     y0, u0, v0 = (torch.as_tensor(p, device=dev) for p in padded[0])
     ys, us, vs = (torch.as_tensor(np.stack([p[k] for p in padded[1:9]]),
                                   device=dev) for k in range(3))
-    qps = torch.full((8,), cfg.qp, dtype=torch.int32, device=dev)
+    # the frame QPs (and row plans) the session would issue for this chunk
+    qp_l = [int(np.clip(enc._rc.frame_qp(False) if enc._rc else cfg.qp,
+                        0, 51)) for _ in range(8)]
+    qps = torch.as_tensor(qp_l, dtype=torch.int32, device=dev)
+    qp_rows = None
+    if enc._row_qp_on:
+        plans = np.stack([enc._plan_rows(q) for q in qp_l]).astype(np.int32)
+        qp_rows = torch.as_tensor(plans, device=dev)
+        print(f"frame QPs {qp_l}, row plans {sorted(set(plans.ravel()))}",
+              flush=True)
     ref = enc._ref
     tu = enc.params.max_tr_depth_intra
 
     def chunk():
         return p_chunk.p_chunk_device(
             ys, us, vs, *ref, qps, deblock=True, sao=True,
-            cap=enc._chunk_cap, tree=enc.inter_split, **enc._tree_kwargs())
+            cap=enc._chunk_cap, tree=enc.inter_split, qp_rows=qp_rows,
+            **enc._tree_kwargs())
 
     _window("p_chunk8", chunk, per=8)
 
@@ -189,6 +203,7 @@ def main(argv) -> int:
             clock.wrap(p_torch, "_level_encode"),
             clock.wrap(p_torch, "_p_stage_tail", "_p_stage_tail"),
             clock.wrap(p_torch, "_intra_in_p"),
+            clock.wrap(p_torch, "decoded_qp_maps"),
             clock.wrap(p_torch, "tree_deblock", "deblock"),
             clock.wrap(p_torch, "inter_deblock", "deblock"),
             clock.wrap(p_chunk, "_sao_device", "sao"),
