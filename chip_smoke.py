@@ -49,19 +49,35 @@ Phases, each of which raises on failure (non-zero exit, no result line):
                    first's bits return; me_sad 0, gather_win 6;
                  vbr_fastest_720p: fastest_720p's configuration under VBR at
                    400 kbps, the same 17 frames; me_sad 1, gather_win 2;
+                 allintra_rdfast64_720p: BASELINE.md's configuration 1,
+                   EncoderConfig(width=1280, height=720, qp=32, cu_size=64,
+                   rd_mode=FAST, sample_adaptive_offset=False,
+                   intra_period=1): two split-RDO IDRs, no launch; its small
+                   clips are all-intra in every rd_mode at CTU 32 and 64;
+                 ibp_fastest_720p, ibp_fast_720p: fastest_720p's and
+                   fast_720p's configurations with gop_size 2 on
+                   synth_clip(1280, 720, 10) through push_frame / flush (I0
+                   P2 B1 P4 B3 P6 B5 P8 B7, the explicit P9 at flush);
+                   launches asserted per frame type (IBP_PATHS);
                every AU's SHA-256 must equal tests/fixtures/
                torch_port_aus.json (written from the JAX package); the same
                P frames with kernels=False must give identical AUs and
-               launch nothing (a rate-controlled path continues from a copy
+               launch nothing (not run on the all-intra path, whose IDRs
+               launch no kernel; a rate-controlled path continues from a copy
                of the rate control's state after the IDR, and its P frames
                are timed here, in the run that counts the launches); libde265
                decode check where the library loads; each path's small
                fixture clip too, with and without the kernels
   5. timing  — after warm-up: 16 P frames end to end on the fixed-CU path,
                8 on each quadtree path (CTU 32 and 64); a P chunk's device
-               stage on each; the IDR's device stage, warm (phase 4 coded
-               it once), and for a split-RDO IDR pass A timed alone (pass B
-               is the rest)
+               stage on each; the fixed-CU IDR's device stage, warm, and a
+               split-RDO IDR's pass A alone, warm (phase 4 printed each
+               IDR's cold time; pass A in rd_mode FAST, FULL and DIST_ONLY
+               on the all-intra path); fast_720p's split-RDO IDR device
+               stage once more, warm, pass B being all but its pass A; on
+               each IBP path the 9 frames
+               after the IDR end to end (fps) and each B frame on its own
+               (ms, host clock ending in a synchronize)
 
 The last three lines are the per-kernel JSON record, the card's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -589,6 +605,31 @@ PATHS = {
     "vbr_fastest_720p": dict(run="vbr_fastest_720p", frames=17, me_sad=1,
                              gather_win=2, small="vbr_fastest_small",
                              rc=True),
+    # BASELINE.md configuration 1: all-intra 720p, CTU 64, rd FAST, no SAO
+    # (two split-RDO IDRs; no kernel runs in an IDR)
+    "allintra_rdfast64_720p": dict(
+        run="allintra_rdfast64_720p", frames=2, me_sad=0, gather_win=0,
+        defaults=dict(cu_size=64, rd_mode="FAST",
+                      sample_adaptive_offset=False, intra_period=1),
+        small=("allintra_rd0_small", "allintra_rd1_small",
+               "allintra_rd2_small", "allintra64_rd0_small",
+               "allintra64_rd1_small", "allintra64_rd2_small")),
+}
+
+# IBP (gop_size 2) through push_frame / flush: I0 P2 B1 P4 B3 P6 B5 P8 B7,
+# then the explicit P9 at flush. Launches per frame type: an anchor P as
+# its performance mode's P frame; a B frame runs the integer search per
+# list (me_sad at search <= 24, else the hierarchical search with one
+# refine window), then gathers each list's luma window and chroma pair; an
+# explicit P is a fixed-CU P frame (at search 64 through the hierarchical
+# search: refine window, luma window, chroma pair)
+IBP_PATHS = {
+    "ibp_fastest_720p": dict(
+        run="ibp_fastest_720p", frames=10, small="ibp_small",
+        per_type=dict(idr=(0, 0), anchor=(1, 2), b=(2, 4), explicit=(1, 2))),
+    "ibp_fast_720p": dict(
+        run="ibp_fast_720p", frames=10, small="ibp_fast_small",
+        per_type=dict(idr=(0, 0), anchor=(0, 6), b=(0, 6), explicit=(0, 3))),
 }
 
 
@@ -615,9 +656,13 @@ def run_path(dev, name, fixture, seeds):
     want = fixture[path["run"]]["aus"][:n]
     cfg = fx.run_config(path["run"])
     if path.get("defaults"):
-        from homerhevc_tpu_torch.config import EncoderConfig
+        from homerhevc_tpu_torch.config import EncoderConfig, RDMode
+        extra = dict(path["defaults"]) if isinstance(path["defaults"],
+                                                     dict) else {}
+        if "rd_mode" in extra:
+            extra["rd_mode"] = RDMode[extra["rd_mode"]]
         default = EncoderConfig(width=run["width"], height=run["height"],
-                                qp=32)
+                                qp=32, **extra)
         # the fixture's fixed fields add only frame-level pipelining, which
         # changes no byte
         if dataclasses.replace(default, frame_pipeline_depth=2) != cfg:
@@ -690,32 +735,207 @@ def run_path(dev, name, fixture, seeds):
             log("  libde265 decode check: ran, last frame == port recon")
     enc.close()
 
-    plain = HomerEncoder(cfg, device=dev, kernels=False)
-    plain.seed_reference(ref0, poc=1, last_idr=0)
-    plain._rc = copy.deepcopy(rc0)
-    aus_plain = plain.encode_frames(frames[1:], chunk=run["chunk"])
+    if not any(expect.values()):
+        # all-intra: every frame is an IDR, which runs no kernel, so a
+        # kernels=False run would code the same work again and prove nothing
+        log(f"  {name}: frames after the first, warm, end to end: "
+            f"{p_secs * 1000 / n_p:.1f} ms a frame on {card_line()}; "
+            "kernels=False run skipped (no kernel runs on this path; its "
+            "small clips run both ways below)")
+    else:
+        plain = HomerEncoder(cfg, device=dev, kernels=False)
+        plain.seed_reference(ref0, poc=1, last_idr=0)
+        plain._rc = copy.deepcopy(rc0)
+        aus_plain = plain.encode_frames(frames[1:], chunk=run["chunk"])
+        plain.close()
+        if aus_plain != aus[1:]:
+            raise AssertionError(f"{name}: kernels=False P AUs differ from "
+                                 "kernel AUs")
+        if {k.name: k.launches for k in kernels} != launches:
+            raise AssertionError(f"{name}: kernels=False run launched a "
+                                 "kernel")
+        log(f"  {name}: kernels=False run of the {n_p} P frames: AUs "
+            "identical, nothing launched")
+
+    check_small(dev, path["small"], fixture)
+    return launches, ref0
+
+
+def check_small(dev, names, fixture) -> None:
+    """The small fixture clips of a path on the card, with and without the
+    kernels, through the run's own entry points (push_frame / flush or
+    encode_frames)."""
+    from homerhevc_tpu_torch.api import HomerEncoder
+    from homerhevc_tpu_torch.utils import fixtures as fx
+
+    for small_name in (names,) if isinstance(names, str) else names:
+        small = fixture[small_name]
+        for use_kernels in (True, False):
+            enc = HomerEncoder(fx.run_config(small_name), device=dev,
+                               kernels=use_kernels)
+            s_aus = fx.encode_run(enc, small_name)
+            enc.close()
+            if fx.au_digest(s_aus) != small["aus"]:
+                raise AssertionError(f"{small_name}: AUs differ from the JAX "
+                                     f"fixture (kernels={use_kernels})")
+        log(f"  {small_name}: {small['width']}x{small['height']} AUs == JAX "
+            f"fixture ({len(s_aus)} AUs), with and without kernels")
+
+
+def ibp_session(cfg, dev, kernels, events):
+    """A session whose B frames and explicit P frames record (kind, launch
+    deltas, host-clocked ms ending in a synchronize) into `events`."""
+    import torch
+
+    from homerhevc_tpu_torch.api import HomerEncoder
+    from homerhevc_tpu_torch.ops.gather import GATHER_WIN
+    from homerhevc_tpu_torch.ops.me import ME_SAD
+
+    enc = (HomerEncoder(cfg) if dev is None          # the card by default
+           else HomerEncoder(cfg, device=dev, kernels=kernels))
+
+    def counted(kind, fn):
+        def call(*args):
+            before = (ME_SAD.launches, GATHER_WIN.launches)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            au = fn(*args)
+            torch.cuda.synchronize()
+            events.append((kind, (ME_SAD.launches - before[0],
+                                  GATHER_WIN.launches - before[1]),
+                           (time.perf_counter() - t) * 1e3))
+            return au
+        return call
+
+    enc._encode_b = counted("b", enc._encode_b)
+    enc._encode_p_explicit = counted("explicit", enc._encode_p_explicit)
+    return enc
+
+
+def push_all(enc, frames, d0, events):
+    """Push frames (display indices d0, d0+1, ...) and flush; an anchor's
+    launches are its push's less those of the B or explicit P it brought.
+    Returns the AUs."""
+    from homerhevc_tpu_torch.ops.gather import GATHER_WIN
+    from homerhevc_tpu_torch.ops.me import ME_SAD
+
+    aus = []
+    for d, f in enumerate(frames, d0):
+        before = (ME_SAD.launches, GATHER_WIN.launches)
+        k = len(events)
+        aus += enc.push_frame(*f)
+        if d % 2 == 0:
+            inner = [e[1] for e in events[k:]]
+            events.insert(k, ("idr" if d == 0 else "anchor", (
+                ME_SAD.launches - before[0] - sum(i[0] for i in inner),
+                GATHER_WIN.launches - before[1] - sum(i[1] for i in inner)),
+                None))
+    return aus + enc.flush()
+
+
+def run_ibp_path(dev, name, fixture):
+    """One IBP path at 720p through push_frame / flush on the default
+    device: its AUs against the fixture, with and without the kernels (the
+    kernels=False session continues from the IDR's planes), launches per
+    frame type. Returns the launch counts and the IDR's planes."""
+    import torch
+
+    from homerhevc_tpu_torch.ops.gather import GATHER_WIN
+    from homerhevc_tpu_torch.ops.me import ME_SAD
+    from homerhevc_tpu_torch.utils import fixtures as fx
+
+    path = IBP_PATHS[name]
+    n = path["frames"]
+    frames = fx.clip(path["run"])[:n]
+    want = fixture[path["run"]]["aus"][:n]
+    cfg = fx.run_config(path["run"])
+    for k in (ME_SAD, GATHER_WIN):
+        k.launches = 0
+    events = []
+    enc = ibp_session(cfg, None, True, events)
+    if enc.device.type != "cuda":
+        raise AssertionError(f"default device is {enc.device}, not the card")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    aus = push_all(enc, frames[:1], 0, events)
+    ref0 = tuple(p.cpu().numpy() for p in enc._ref)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    aus = aus[:1] + push_all(enc, frames[1:], 1, events)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = {"me_sad": ME_SAD.launches, "gather_win": GATHER_WIN.launches}
+    kinds = [e[0] for e in events]
+    log(f"  {name}: {cfg.performance_mode.name}, cu_size {cfg.cu_size}, "
+        f"search {cfg.me_search_range}, gop_size {cfg.gop_size}, {n} frames "
+        f"through push_frame / flush (first run: IDR {t1 - t0:.2f} s, the "
+        f"other {n - 1} frames {t2 - t1:.2f} s); launches {launches}; frame "
+        f"types in coding order {kinds}")
+    per_type = path["per_type"]
+    bad = [(kind, got) for kind, got, _ in events if got != per_type[kind]]
+    if bad or kinds.count("b") != (n - 1) // 2 or "explicit" not in kinds:
+        raise AssertionError(f"{name}: launches (me_sad, gather_win) per "
+                             f"frame {bad}, expected {per_type}; frames "
+                             f"{kinds}")
+    log(f"  {name}: launches (me_sad, gather_win) per frame type asserted: "
+        f"{per_type}")
+    got = fx.au_digest(aus)
+    bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+    if len(got) != len(want) or bad:
+        raise AssertionError(f"{name}: AUs differ from the JAX fixture at "
+                             f"{bad} (sizes {[g['len'] for g in got]})")
+    log(f"  {name}: AUs == JAX fixture ({len(got)} AUs in decode order, "
+        f"{sum(g['len'] for g in got)} bytes)")
+    enc.close()
+
+    plain = ibp_session(cfg, dev, False, [])
+    plain.seed_reference(ref0, poc=0, last_idr=0)
+    plain._disp = 1            # continue the display order after the IDR
+    aus_plain = push_all(plain, frames[1:], 1, [])
     plain.close()
     if aus_plain != aus[1:]:
-        raise AssertionError(f"{name}: kernels=False P AUs differ from "
-                             "kernel AUs")
-    if {k.name: k.launches for k in kernels} != launches:
+        raise AssertionError(f"{name}: kernels=False AUs differ from kernel "
+                             "AUs")
+    if {"me_sad": ME_SAD.launches,
+            "gather_win": GATHER_WIN.launches} != launches:
         raise AssertionError(f"{name}: kernels=False run launched a kernel")
-    log(f"  {name}: kernels=False run of the {n_p} P frames: AUs identical, "
-        "nothing launched")
-
-    small_name = path["small"]
-    small = fixture[small_name]
-    for use_kernels in (True, False):
-        enc = HomerEncoder(fx.run_config(small_name), device=dev,
-                           kernels=use_kernels)
-        s_aus = enc.encode_frames(fx.clip(small_name), chunk=small["chunk"])
-        enc.close()
-        if fx.au_digest(s_aus) != small["aus"]:
-            raise AssertionError(f"{small_name}: AUs differ from the JAX "
-                                 f"fixture (kernels={use_kernels})")
-    log(f"  {small_name}: {small['width']}x{small['height']} AUs == JAX "
-        f"fixture ({len(s_aus)} AUs), with and without kernels")
+    log(f"  {name}: kernels=False run of the {n - 1} frames after the IDR: "
+        "AUs identical, nothing launched")
+    check_small(dev, path["small"], fixture)
     return launches, ref0
+
+
+def ibp_timing(dev, name, ref0, card: str) -> None:
+    """IBP end to end after the IDR, warm: the 9 frames (4 anchor P, 4 B,
+    the explicit P) from the IDR's planes, twice; the second run's frames
+    per second and its B frames' host-clocked milliseconds."""
+    import torch
+
+    from homerhevc_tpu_torch.utils import fixtures as fx
+
+    path = IBP_PATHS[name]
+    frames = fx.clip(path["run"])[1:path["frames"]]
+    cfg = fx.run_config(path["run"])
+    for rep in range(2):
+        events = []
+        enc = ibp_session(cfg, dev, True, events)
+        enc.seed_reference(ref0, poc=0, last_idr=0)
+        enc._disp = 1
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        aus = push_all(enc, frames, 1, events)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        enc.close()
+    b_ms = [e[2] for e in events if e[0] == "b"]
+    p_ms = [e[2] for e in events if e[0] == "explicit"]
+    log(f"  {name}: {len(frames)} frames after the IDR end to end (warm): "
+        f"{secs * 1000:.1f} ms -> {len(frames) / secs:.2f} fps "
+        f"({sum(len(a) for a in aus)} bytes); B frames "
+        f"{', '.join(f'{m:.1f}' for m in b_ms)} ms (mean "
+        f"{sum(b_ms) / len(b_ms):.1f} ms per B frame), explicit P "
+        f"{p_ms[0]:.1f} ms; host-clocked, each ending in "
+        f"torch.cuda.synchronize(), on {card}")
 
 
 def synced_ms(fn, reps: int = 1) -> float:
@@ -732,11 +952,13 @@ def synced_ms(fn, reps: int = 1) -> float:
     return best
 
 
-def phase_timing(dev, name, n_p: int, ref0, card: str):
+def phase_timing(dev, name, n_p: int, ref0, card: str,
+                 idr_warm: bool = False):
     """End-to-end and device-stage times of one path at 720p; the sessions
-    continue from the planes `ref0` behind the IDR. The IDR's device stage
-    is timed warm (phase 4 coded it once), once: a split-RDO IDR takes a
-    minute or more. Pass A is then timed alone and pass B is the rest."""
+    continue from the planes `ref0` behind the IDR. A fixed-CU IDR's device
+    stage is timed warm (phase 4 coded it once). A split-RDO IDR takes most
+    of a minute or more: its pass A is timed alone, and only with
+    `idr_warm` its whole device stage once, warm, pass B being the rest."""
     import numpy as np
     import torch
 
@@ -761,6 +983,7 @@ def phase_timing(dev, name, n_p: int, ref0, card: str):
         f"{n_p / secs:.2f} fps ({sum(len(a) for a in aus)} bytes) on {card}")
 
     # device-only view of the same work: one chunk of 8 P frames, and the IDR
+    # (of a split-RDO IDR, pass A alone)
     padded = [enc2._pad_frame(*f) for f in frames[1:9]]
     ys, us, vs = (torch.as_tensor(np.stack([p[k] for p in padded]),
                                   device=dev) for k in range(3))
@@ -774,23 +997,44 @@ def phase_timing(dev, name, n_p: int, ref0, card: str):
     yp = tuple(torch.as_tensor(p, device=dev)
                for p in enc2._pad_frame(*frames[0]))
     tu = enc.params.max_tr_depth_intra
-    ms = synced_ms(lambda: intra_torch.encode_frame_intra(
-        *yp, B=enc.ctu, qp=cfg.qp, sign_hiding=True,
-        split_rdo=enc.intra_split, tu_depth=tu))
-    line = f"  {name}: IDR device stage (warm): {ms:.1f} ms"
-    if enc.intra_split:
-        qp_t = torch.tensor(cfg.qp, dtype=torch.int32, device=dev)
-        from homerhevc_tpu_torch import tables
-        lam = torch.as_tensor(tables.LAMBDA_FX, device=dev)[qp_t]
-        ms_a = synced_ms(lambda: intra_torch._open_loop_maps(
-            yp[0], B=32, qp=qp_t, lam_fx=lam, strong_smoothing=True,
-            tu_split=bool(tu)), 2)
-        line += (f", of which pass A (open-loop decisions, timed alone) "
-                 f"{ms_a:.1f} ms and pass B (closed-loop wavefront) "
-                 f"{ms - ms_a:.1f} ms")
-    log(line + f" on {card}")
+    if enc.intra_split and not idr_warm:
+        # a split-RDO IDR takes most of a minute or more (phase 4 printed
+        # its cold time); of it only pass A is timed again here, warm
+        pass_a_timing(dev, name, yp[0], cfg, bool(tu), card)
+    else:
+        ms = synced_ms(lambda: intra_torch.encode_frame_intra(
+            *yp, B=enc.ctu, qp=cfg.qp, sign_hiding=True,
+            split_rdo=enc.intra_split, tu_depth=tu))
+        log(f"  {name}: IDR device stage (warm): {ms:.1f} ms on {card}")
+        if enc.intra_split:
+            ms_a = pass_a_timing(dev, name, yp[0], cfg, bool(tu), card)
+            log(f"  {name}: IDR pass B (closed-loop wavefront, warm): the "
+                f"rest, {ms - ms_a:.1f} ms on {card}")
     enc.close()
     enc2.close()
+
+
+def pass_a_timing(dev, name, y, cfg, tu_split: bool, card: str,
+                  rd_modes=None) -> float:
+    """Warm device time of the split-RDO IDR's pass A (open-loop decisions)
+    on a padded luma plane, in the configuration's rd_mode or in each of
+    `rd_modes`; returns the last one's milliseconds."""
+    import torch
+
+    from homerhevc_tpu_torch import tables
+    from homerhevc_tpu_torch.pipeline import intra_torch
+
+    qp_t = torch.tensor(cfg.qp, dtype=torch.int32, device=dev)
+    lam = torch.as_tensor(tables.LAMBDA_FX, device=dev)[qp_t]
+    parts = []
+    for rd in rd_modes or (int(cfg.rd_mode),):
+        ms_a = synced_ms(lambda: intra_torch._open_loop_maps(
+            y, B=32, qp=qp_t, lam_fx=lam, strong_smoothing=True,
+            rd_mode=rd, tu_split=tu_split), 2)
+        parts.append(f"rd_mode {rd} {ms_a:.1f} ms")
+    log(f"  {name}: IDR pass A (open-loop decisions, warm, timed alone): "
+        f"{', '.join(parts)} on {card}")
+    return ms_a
 
 
 def main() -> int:
@@ -807,7 +1051,7 @@ def main() -> int:
     from homerhevc_tpu_torch.kernels import build
     from homerhevc_tpu_torch.ops.gather import GATHER_WIN
     from homerhevc_tpu_torch.ops.me import ME_SAD
-    from homerhevc_tpu_torch.utils.fixtures import clip
+    from homerhevc_tpu_torch.utils.fixtures import clip, run_config
 
     dev = require_cuda()
     card = card_line()
@@ -840,6 +1084,8 @@ def main() -> int:
     for name in PATHS:
         by_path[name] = run_path(dev, name, fixture,
                                  {p: r[1] for p, r in by_path.items()})
+    for name in IBP_PATHS:
+        by_path[name] = run_ibp_path(dev, name, fixture)
     for kernel, rec in records.items():
         rec["launches_by_path"] = {p: c[0][kernel]
                                    for p, c in by_path.items()}
@@ -848,9 +1094,17 @@ def main() -> int:
             raise AssertionError(f"{kernel} was launched on no main path")
 
     log("[5/5] timing:")
+    # the CTU-32 split-RDO IDR's device stage is timed warm once more
     for name, n_p in (("fastest_720p", 16), ("fast_720p", 8),
                       ("default_720p", 8)):
-        phase_timing(dev, name, n_p, by_path[name][1], card)
+        phase_timing(dev, name, n_p, by_path[name][1], card,
+                     idr_warm=name == "fast_720p")
+    run = PATHS["allintra_rdfast64_720p"]["run"]
+    y = torch.as_tensor(pad_plane(clip(run)[0][0], 768, 1280), device=dev)
+    pass_a_timing(dev, "allintra_rdfast64_720p", y, run_config(run), True,
+                  card, rd_modes=(2, 1, 0))
+    for name in IBP_PATHS:
+        ibp_timing(dev, name, by_path[name][1], card)
 
     print(json.dumps({"kernels": list(records.values())}))
     print(card)

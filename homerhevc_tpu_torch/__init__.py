@@ -9,16 +9,22 @@ entropy coding with its own build of libhenc, AU assembly, the host SAO and
 merge/AMVP derivations, synthetic clips, libde265 validation), under the
 same names and layout. Only the tests import both packages.
 
-Supported configurations, at `cu_size=32`, fixed QP, rd_mode FULL, IPPP:
-FASTEST_COMPUTATION (IDR at CU = TU = 32, fixed-CU P frames),
-FASTER_COMPUTATION (split-RDO IDR, fixed-CU P frames) and FAST_COMPUTATION
-(split-RDO IDR, inter CU quadtree P frames with hierarchical ME, inter TU
-split and intra-in-P). Everything else raises NotImplementedError naming
-the setting.
+Supported (what `api.check_slice` admits): cu_size 32 and 64 in every
+performance mode — FASTEST_COMPUTATION (IDR at CU = TU = 32, fixed-CU P
+frames), FASTER_COMPUTATION (split-RDO IDR, fixed-CU P frames),
+FAST_COMPUTATION (split-RDO IDR, inter CU quadtree P frames with
+hierarchical ME, inter TU split and intra-in-P at CTU 32) and
+FULL_COMPUTATION (the quadtree down to 8x8 inter CUs); fixed QP, CBR or VBR
+(per-CTU-row QPs on the quadtree path); WPP or not; every rd_mode (FULL,
+FAST, DIST_ONLY); all-intra (intra_period 1); and B frames (gop_size >= 2:
+IBP through push_frame / flush) at cu_size 32. cu_size 16, B frames at
+cu_size 64, wpp_shards > 1 and bit_depth != 8 raise NotImplementedError
+naming the setting.
 
 Layer map:
-  api.py                  — HomerEncoder session (IDR + chunked P frames);
-                            runs on the CUDA device unless told device="cpu"
+  api.py                  — HomerEncoder session (IDR + chunked P frames,
+                            streaming IBP); runs on the CUDA device unless
+                            told device="cpu"
   config.py               — EncoderConfig and its enums
   device.py               — device checks and int32 helpers
   tables.py               — numpy spec tables + torch twins
@@ -26,16 +32,17 @@ Layer map:
                             libhenc (C++, built with g++ at first use)
   ops/                    — transforms, quant, intra prediction, deblock, SAO
                             (device and host derivation), inter candidate
-                            decisions, and the two kernel-backed ops (me.py,
-                            gather.py)
+                            decisions (P and B), and the two kernel-backed
+                            ops (me.py, gather.py)
   pipeline/               — intra_torch (IDR wavefront, fixed CU or decided
                             quadtree), p_torch (fixed-CU and quadtree P
-                            stages), p_chunk (K-frame device loop + wire),
-                            assemble
-                            (headers + slice data -> Annex-B)
+                            stages), b_torch (B stage), p_chunk (K-frame
+                            device loop + wire), b_golden (host plans of
+                            B frames), assemble (headers + slice data ->
+                            Annex-B)
   kernels/                — hand-written CUDA kernels for sm_90a + build
   utils/, validate/       — synthetic clips, the reference runs' fixtures
                             helpers, libde265 decode check
 """
 
-__version__ = "0.3.0"
+__version__ = "0.4.0"

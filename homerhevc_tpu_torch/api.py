@@ -2,24 +2,31 @@
 
     enc = HomerEncoder(cfg)                    # on the card; raises without one
     aus = enc.encode_frames(frames, chunk=8)   # Annex-B bytes, one per AU
+    aus = enc.push_frame(y, u, v)              # streaming, display order:
+    aus += enc.flush()                         # 0+ AUs each, decode order
     enc.close()
 
 Port of homerhevc_tpu/api.py for the configurations this package supports
-(every performance mode at cu_size 32 and 64, fixed QP or CBR / VBR rate
-control with per-CTU-row QPs on the quadtree path, WPP, rd_mode FULL): IDR
-frames through the all-intra wavefront (CU = TU = 32 in FASTEST, the
-split-RDO quadtree with NxN and intra TU split otherwise; a 64-CTU codes its
-four 32-blocks in z-order), P frames through the fixed-CU device stage
-(FASTEST, FASTER) or the inter CU quadtree with hierarchical ME and inter TU
-split (FAST; FULL descends to 8x8 CUs; intra-in-P at CTU 32), chunked K
-frames per dispatch with the reference planes kept on the device, and
-host CABAC (this package's own libhenc, built with g++ at first use)
-overlapping device work on the next chunk. Every AU equals, byte
-for byte, what `homerhevc_tpu.api.HomerEncoder(cfg, backend="jax")` writes.
-Configurations outside the slice raise NotImplementedError naming the
-setting. Nothing of the JAX package is imported: config, tables, entropy
-coding and AU assembly are this package's own copies, and a configuration
-object of another package raises TypeError.
+(check_slice: every performance mode at cu_size 32 and 64, fixed QP or CBR
+/ VBR rate control with per-CTU-row QPs on the quadtree path, WPP, every
+rd_mode, all-intra, and B frames at cu_size 32): IDR frames through the
+all-intra wavefront (CU = TU = 32 in FASTEST, the split-RDO quadtree with
+NxN and intra TU split otherwise; a 64-CTU codes its four 32-blocks in
+z-order; rd_mode sets the mode search), P frames through the fixed-CU
+device stage (FASTEST, FASTER) or the inter CU quadtree with hierarchical
+ME and inter TU split (FAST; FULL descends to 8x8 CUs; intra-in-P at CTU
+32), chunked K frames per dispatch with the reference planes kept on the
+device, and host CABAC (this package's own libhenc, built with g++ at
+first use) overlapping device work on the next chunk. With gop_size >= 2,
+push_frame codes the reference's IBP GOP: anchors per frame as above, each
+B frame between its two anchors (pipeline/b_torch.py), explicit P frames
+before a scheduled IDR and at flush, in the reference's call order
+(encode_frames, like the reference's, codes IPPP chunks). Every AU equals,
+byte for byte, what `homerhevc_tpu.api.HomerEncoder(cfg, backend="jax")`
+writes. Configurations outside the slice raise NotImplementedError naming
+the setting. Nothing of the JAX package is imported: config, tables,
+entropy coding and AU assembly are this package's own copies, and a
+configuration object of another package raises TypeError.
 """
 
 from __future__ import annotations
@@ -30,12 +37,13 @@ import numpy as np
 import torch
 
 from . import tables
-from .config import BitrateMode, EncoderConfig, PerformanceMode, RDMode
+from .config import BitrateMode, EncoderConfig, PerformanceMode
 from .device import require_cuda
 from .entropy import headers, native_backend
 from .ops.inter_golden import derive_block_decisions_fast
 from .ops.sao import sao_stage_device
-from .pipeline import assemble, intra_torch, p_chunk, p_torch
+from .pipeline import (assemble, b_golden, b_torch, intra_torch, p_chunk,
+                       p_torch)
 from .rate_control import RateControl
 
 SCENE_SAD_PER_PIXEL = 25.0     # mean best-ME-cost per pixel => scene cut
@@ -60,14 +68,17 @@ def _tree_decisions(depth_u, mv_u, nz_u, ctu_log2: int, n_cand: int = 5,
 def check_slice(c: EncoderConfig) -> None:
     """Raise NotImplementedError for any setting outside the ported slice:
     cu_size 32 and 64 in every performance mode, any bitrate_mode, WPP or
-    not, rd_mode FULL, IPPP, one device, 8-bit. (The JAX package has no
-    quadtree P stage at cu_size 16: FAST and FULL fail there.)"""
+    not, every rd_mode, IPPP, and B frames (gop_size >= 2) at cu_size 32;
+    one device, 8-bit. (The JAX package has no quadtree P stage at cu_size
+    16: FAST and FULL fail there; its B stage codes TU = CU, and at cu_size
+    64 asks for a 64-point DCT, which HEVC does not have.)"""
     checks = (
         (c.cu_size == 16, f"cu_size={c.cu_size} "
                           f"({c.performance_mode.name})"),
-        (c.gop_size >= 2, f"gop_size={c.gop_size} (B frames)"),
+        (c.gop_size >= 2 and c.cu_size == 64,
+         f"gop_size={c.gop_size} at cu_size=64 (B frames: the reference's "
+         "B stage codes TU = CU and asks for a 64-point DCT)"),
         (c.wpp_shards > 1, f"wpp_shards={c.wpp_shards}"),
-        (c.rd_mode != RDMode.FULL, f"rd_mode={c.rd_mode.name}"),
         (c.bit_depth != 8, f"bit_depth={c.bit_depth}"),
     )
     for bad, what in checks:
@@ -77,7 +88,8 @@ def check_slice(c: EncoderConfig) -> None:
 
 
 class HomerEncoder:
-    """Streaming HEVC encoder session (IDR + P low-delay) on one device.
+    """Streaming HEVC encoder session (IDR + P low-delay, or IBP through
+    push_frame) on one device.
 
     `device=None` (the default) is the CUDA device, and raises RuntimeError
     when there is none; a caller that wants the CPU says `device="cpu"`.
@@ -132,10 +144,21 @@ class HomerEncoder:
             max_tr_depth_inter=int(self.inter_split
                                    and c.max_inter_tr_depth >= 1),
             init_qp=c.qp, sign_hiding=c.sign_hiding,
-            deblocking_disabled=not c.deblocking, num_ref_frames=1,
+            deblocking_disabled=not c.deblocking,
+            num_ref_frames=(2 if c.gop_size >= 2 else 1),
             wpp_enabled=c.wpp, sao_enabled=c.sample_adaptive_offset,
             cb_qp_offset=c.chroma_qp_offset,
-            cr_qp_offset=c.chroma_qp_offset)
+            cr_qp_offset=c.chroma_qp_offset,
+            # with B frames: the anchor P two pictures back (0), the B
+            # between its anchors (1), the explicit P one picture back (2)
+            **({} if c.gop_size < 2 else dict(
+                num_reorder_pics=1,
+                rps_list=(headers.StRefPicSet(delta_pocs=(2,), used=(True,)),
+                          headers.StRefPicSet(delta_pocs=(1,), used=(True,),
+                                              pos_delta_pocs=(1,),
+                                              pos_used=(True,)),
+                          headers.StRefPicSet(delta_pocs=(1,),
+                                              used=(True,))))))
         # rate control: host-side scalar state, queried in the reference's
         # order (the QP trajectory depends on it)
         self._rc = (None if c.bitrate_mode == BitrateMode.FIXED_QP
@@ -157,6 +180,8 @@ class HomerEncoder:
         self.last_qp = c.qp
         self.frame_bytes = []
         self.chunk_overflows = 0
+        self._disp = 0               # display index of the next push_frame
+        self._b_pend = None          # (display index, frame) of a waiting B
         # side stream for the device-to-host wire copy of each chunk, so the
         # copy of chunk k overlaps compute of chunk k+1 on the main stream
         self._copy_stream = (torch.cuda.Stream(self.device)
@@ -215,15 +240,18 @@ class HomerEncoder:
         self.frame_bytes.append(len(au))
         if self._rc:
             self._rc.end_frame(len(au) * 8, is_idr)
-        if recon_padded is None:
-            self.last_recon = None
-        else:
-            self.last_recon = tuple(
-                p[:h, :w] for p, (h, w) in zip(
-                    recon_padded, ((c.height, c.width),
-                                   (c.height // 2, c.width // 2),
-                                   (c.height // 2, c.width // 2))))
+        self.last_recon = self._crop(recon_padded)
         return au
+
+    def _crop(self, recon_padded):
+        """The decoder's output picture from padded planes (None stays
+        None)."""
+        if recon_padded is None:
+            return None
+        c = self.cfg
+        return tuple(p[:h, :w] for p, (h, w) in zip(
+            recon_padded, ((c.height, c.width), (c.height // 2, c.width // 2),
+                           (c.height // 2, c.width // 2))))
 
     def _scene_cut(self, qp: int) -> int:
         """A P frame turned out to be a scene cut: mark it, re-target rate
@@ -248,7 +276,8 @@ class HomerEncoder:
             tu_depth = self.params.max_tr_depth_intra
             out = intra_torch.encode_frame_intra(
                 ydev, udev, vdev, B=size, qp=qp, sign_hiding=c.sign_hiding,
-                split_rdo=self.intra_split, tu_depth=tu_depth)
+                split_rdo=self.intra_split, rd_mode=int(c.rd_mode),
+                tu_depth=tu_depth)
             wire_h = out["wire"].cpu().numpy()          # one compact fetch
             (cnt_i, mode_u8, depth_u8, part_u8, trd_u8, idx_i,
              vals_i) = intra_torch.unpack_intra_wire(wire_h, self.ph, self.pw)
@@ -288,28 +317,12 @@ class HomerEncoder:
                 me_precision=int(c.motion_estimation_precision),
                 deblock=c.deblocking, sign_hiding=c.sign_hiding,
                 kernels=self.kernels)
-            nby, nbx = self.ph // size, self.pw // size
-            B2 = size // 2
-            ny = nby * nbx * size * size
-            nc = nby * nbx * B2 * B2
-            wire = out["wire"].cpu().numpy()            # one fetch
-            meta = np.ascontiguousarray(wire[ny + 2 * nc:]).view(np.int32)
-            mvs = meta[:nby * nbx * 2].reshape(nby, nbx, 2)
-            sad = meta[nby * nbx * 2:].reshape(nby, nbx)
+            maps, sad = self._fixed_p_maps(out["wire"], size)
             if c.reinit_gop_on_scene_change:
                 ms = float(sad.astype(np.int64).mean())
                 if ms / (size * size) > SCENE_SAD_PER_PIXEL:
                     return self._encode(yp, up, vp, True,
                                         self._scene_cut(qp))
-            lev_y = wire[:ny].reshape(nby, nbx, size, size)
-            lev_u = wire[ny:ny + nc].reshape(nby, nbx, B2, B2)
-            lev_v = wire[ny + nc:ny + 2 * nc].reshape(nby, nbx, B2, B2)
-            has_resid = (np.any(lev_y, axis=(-1, -2))
-                         | np.any(lev_u, axis=(-1, -2))
-                         | np.any(lev_v, axis=(-1, -2)))
-            dec, _ = derive_block_decisions_fast(mvs, has_resid, size, 5)
-            maps = native_backend.maps_from_p_arrays(mvs, dec, lev_y, lev_u,
-                                                     lev_v, size)
             key = "ref" if c.deblocking else "recon"
             self._ref = (out[key + "_y"], out[key + "_u"], out[key + "_v"])
             sao_info = self._maybe_sao(qp, slice_p=True)
@@ -319,6 +332,28 @@ class HomerEncoder:
         recon = (tuple(p.cpu().numpy() for p in self._ref)
                  if self.fetch_recon else None)
         return au, recon
+
+    def _fixed_p_maps(self, wire, size: int):
+        """Host half of a fixed-CU P frame: one fetch of the device wire,
+        the merge/skip/AMVP decisions and the syntax maps. Returns (maps,
+        per-block best ME cost)."""
+        nby, nbx = self.ph // size, self.pw // size
+        B2 = size // 2
+        ny = nby * nbx * size * size
+        nc = nby * nbx * B2 * B2
+        wire = wire.cpu().numpy()                       # one fetch
+        meta = np.ascontiguousarray(wire[ny + 2 * nc:]).view(np.int32)
+        mvs = meta[:nby * nbx * 2].reshape(nby, nbx, 2)
+        sad = meta[nby * nbx * 2:].reshape(nby, nbx)
+        lev_y = wire[:ny].reshape(nby, nbx, size, size)
+        lev_u = wire[ny:ny + nc].reshape(nby, nbx, B2, B2)
+        lev_v = wire[ny + nc:ny + 2 * nc].reshape(nby, nbx, B2, B2)
+        has_resid = (np.any(lev_y, axis=(-1, -2))
+                     | np.any(lev_u, axis=(-1, -2))
+                     | np.any(lev_v, axis=(-1, -2)))
+        dec, _ = derive_block_decisions_fast(mvs, has_resid, size, 5)
+        return native_backend.maps_from_p_arrays(mvs, dec, lev_y, lev_u,
+                                                 lev_v, size), sad
 
     def _tree_kwargs(self) -> dict:
         """Static settings of the tree P stage, per frame and per chunk."""
@@ -422,6 +457,114 @@ class HomerEncoder:
         return info
 
     # ------------------------------------------------------------------
+    def push_frame(self, y, u, v) -> list:
+        """Streaming input in display order; returns 0 or more Annex-B AUs
+        in decode order. With gop_size >= 2 each B frame waits for its
+        future anchor (I0, P2, B1, P4, B3, ...: the reference's default IBP
+        GOP); otherwise this is encode_frame. A B whose next anchor is an
+        IDR is coded as an explicit P before the IDR. `last_recon` is the
+        last anchor's decoded picture (the session keeps none of a B)."""
+        c = self.cfg
+        if c.gop_size < 2:
+            return [self.encode_frame(y, u, v)]
+        if np.shape(y) != (c.height, c.width):
+            raise ValueError("frame size mismatch")
+        d = self._disp
+        self._disp += 1
+        if d % 2 == 1:                       # B position: wait for the anchor
+            self._b_pend = (d, (y, u, v))
+            return []
+        out = []
+        prev_ref = self._ref                 # the previous anchor
+        is_idr = (d == 0 or (c.intra_period > 0
+                             and (d - self.last_idr) % c.intra_period == 0))
+        if is_idr and self._b_pend is not None:
+            out.append(self._encode_p_explicit(self._b_pend, prev_ref))
+            self._b_pend = None
+        qp = int(np.clip(self._rc.frame_qp(is_idr) if self._rc else c.qp,
+                         0, 51))
+        self.poc = d
+        self._scene_idr = False
+        au, recon = self._encode(*self._pad_frame(y, u, v), is_idr, qp)
+        if self._scene_idr:
+            is_idr = True
+        if is_idr:
+            # a scene-cut IDR moves the anchor before a waiting B is coded,
+            # so that frame's POC is -1 (as the reference writes it)
+            self.last_idr = d
+        out.append(au)
+        self.frame_bytes.append(len(au))
+        if self._rc:
+            self._rc.end_frame(len(au) * 8, is_idr)
+        self.last_recon = self._crop(recon)
+        if self._b_pend is not None:
+            pend, self._b_pend = self._b_pend, None
+            if is_idr:                       # scene-cut IDR: no B across it
+                out.insert(len(out) - 1,
+                           self._encode_p_explicit(pend, prev_ref))
+            else:
+                out.append(self._encode_b(pend, prev_ref, self._ref))
+        return out
+
+    def flush(self) -> list:
+        """The waiting B frame of an even-length input, as an explicit P
+        against the last anchor (no AU when nothing waits)."""
+        if self._b_pend is None:
+            return []
+        pend, self._b_pend = self._b_pend, None
+        return [self._encode_p_explicit(pend, self._ref)]
+
+    def _encode_p_explicit(self, pend, ref) -> bytes:
+        """A fixed-CU P frame against the given reference planes, one
+        picture back (a trailing frame, or one before an IDR): rps 2, no
+        loop filter on its reconstruction, which nothing references."""
+        c = self.cfg
+        size = self.ctu
+        d, frame = pend
+        qp = int(np.clip(self._rc.frame_qp(False) if self._rc else c.qp,
+                         0, 51))
+        cur = tuple(self._upload(p) for p in self._pad_frame(*frame))
+        out = p_torch.p_frame_device(
+            *cur, *ref, B=size, qp=qp, search=c.me_search_range,
+            me_precision=int(c.motion_estimation_precision), deblock=False,
+            sign_hiding=c.sign_hiding, kernels=self.kernels)
+        maps, _ = self._fixed_p_maps(out["wire"], size)
+        au = assemble.assemble_p_au_from_maps(
+            self.params, maps, poc=d - self.last_idr, slice_qp=qp, rps_idx=2)
+        self.frame_bytes.append(len(au))
+        if self._rc:
+            self._rc.end_frame(len(au) * 8, False)
+        return au
+
+    def _encode_b(self, pend, ref0, ref1) -> bytes:
+        """One B frame between its two anchors' decoded planes (a
+        non-reference picture: its reconstruction is not kept)."""
+        c = self.cfg
+        d, frame = pend
+        qp = int(np.clip(self._rc.frame_qp(False, is_b=True) if self._rc
+                         else c.qp + 2, 0, 51))
+        cur = tuple(self._upload(p) for p in self._pad_frame(*frame))
+        out = b_torch.b_frame_device(
+            *cur, *ref0, *ref1, B=self.ctu, qp=qp, search=c.me_search_range,
+            me_precision=int(c.motion_estimation_precision),
+            sign_hiding=c.sign_hiding, vis=(c.height, c.width),
+            kernels=self.kernels)
+        w = b_torch.unpack_b_wire(out["wire"].cpu().numpy(), self.ph,
+                                  self.pw, self.ctu)    # one fetch
+        plan = b_golden.build_b_plans(
+            w["idc"], w["mv0"], w["mv1"],
+            *(w[k].astype(np.int32) for k in ("lev_y", "lev_u", "lev_v")),
+            (None, None, None), size=self.ctu, poc=d - self.last_idr,
+            poc_refs=(d - 1 - self.last_idr, d + 1 - self.last_idr))
+        au = assemble.assemble_p_au(self.params, plan.ctu_plans,
+                                    poc=d - self.last_idr, slice_qp=qp,
+                                    slice_type=headers.SLICE_B, rps_idx=1)
+        self.frame_bytes.append(len(au))
+        if self._rc:
+            self._rc.end_frame(len(au) * 8, False, is_b=True)
+        return au
+
+    # ------------------------------------------------------------------
     def encode_frames(self, frames, *, chunk: int = 8) -> list:
         """Batched streaming encode: [(y, u, v), ...] -> [Annex-B AU, ...].
 
@@ -431,7 +574,10 @@ class HomerEncoder:
         chunk k overlaps device work on chunk k+1. Rate control issues each
         frame's QP, and plans its CTU rows, when its chunk is dispatched,
         from the bits of the chunks finished by then. IDR frames (POC 0,
-        intra_period boundaries, scene cuts) use the per-frame path."""
+        intra_period boundaries, scene cuts) use the per-frame path. The
+        reference's encode_frames does not read gop_size: with B frames
+        configured it still codes IPPP, under the two-reference parameter
+        sets, and so does this one (push_frame codes the IBP GOP)."""
         c = self.cfg
         n = len(frames)
         poc0 = self.poc

@@ -3,8 +3,8 @@ search, or the two-pass CU quadtree (split RDO) down to 8x8 luma with NxN
 leaves and one level of intra TU split.
 
 Port of homerhevc_tpu/pipeline/intra_jax.py (`encode_frame_intra` at CTU 32
-and `encode_frame_intra_ctu64`, one function here, rd_mode FULL, with and
-without `split_rdo`). The reference's `lax.fori_loop`
+and `encode_frame_intra_ctu64`, one function here, in every rd_mode, with
+and without `split_rdo`). The reference's `lax.fori_loop`
 over block anti-diagonals (skew 2, the WPP dependency pattern) becomes a
 Python loop; every block on a diagonal is processed in one batch.
 
@@ -61,16 +61,33 @@ def _code_blocks(orig, preds, modes, *, size, c_idx, qp, sign_hiding):
     return levels, (preds + r).clamp(0, 255).to(I32)
 
 
+# rd_mode FAST candidate list (planar, DC, angular every 4th), the
+# reference's coarse search round; a +-1/+-2 refinement around the angular
+# winner follows in pass A
+_FAST_MODES = (0, 1, 2, 6, 10, 14, 18, 22, 26, 30, 34)
+
+
+def _mode_list(rd_mode: int) -> np.ndarray:
+    """The modes a battery evaluates: the FAST subset or all 35."""
+    return np.asarray(_FAST_MODES if rd_mode == 2 else np.arange(35),
+                      np.int64)
+
+
 def encode_block_all_modes(orig, top, left, corner, has_left, has_top, *,
                            size, c_idx, qp, lam_fx, strong_smoothing,
-                           sign_hiding=False):
-    """All-35-mode closed-loop encode of N blocks: (levels, recon) (N, 35,
-    n, n) and cost (N, 35) = SSD + lambda * bit estimate."""
+                           sign_hiding=False, mode_set=None):
+    """All-35-mode closed-loop encode of N blocks: (levels, recon) (N, M,
+    n, n) and cost (N, M) = SSD + lambda * bit estimate, M 35, or
+    len(mode_set) when a static subset of modes is given (rd_mode FAST:
+    only the subset is transformed and coded)."""
     refs = intra_ops.prepare_refs(top, left, corner, has_left, has_top,
                                   size=size, c_idx=c_idx,
                                   strong_smoothing=strong_smoothing)
     preds = intra_ops.predict_all_modes(*refs, size=size, c_idx=c_idx)
-    modes = torch.arange(35, device=orig.device)[None]
+    md = np.arange(35) if mode_set is None else np.asarray(mode_set)
+    modes = torch.as_tensor(md, device=orig.device)[None]
+    if mode_set is not None:
+        preds = preds[:, modes[0]]
     levels, recon = _code_blocks(orig, preds, modes, size=size, c_idx=c_idx,
                                  qp=qp, sign_hiding=sign_hiding)
     diff = orig[:, None] - recon
@@ -92,6 +109,20 @@ def encode_block_one_mode(orig, top, left, corner, has_left, has_top, m, *,
     return levels[:, 0], recon[:, 0]
 
 
+def _cost_one_mode(orig, top, left, corner, has_left, has_top, m, *, size,
+                   qp, lam_fx, strong_smoothing):
+    """Open-loop RD cost (N,) of luma blocks at modes m (N,): the rd_mode
+    FAST refinement."""
+    lev, rec = encode_block_one_mode(orig, top, left, corner, has_left,
+                                     has_top, m, size=size, c_idx=0, qp=qp,
+                                     strong_smoothing=strong_smoothing,
+                                     sign_hiding=False)
+    diff = orig - rec
+    ssd = (diff * diff).sum(dim=(-1, -2))
+    bits = torch.clamp(tables.level_bits_est_t(lev), max=16383)
+    return ssd + (((lam_fx >> 4) * bits) >> 4)
+
+
 # ---------------------------------------------------------------------------
 # pass A: open-loop decisions for the whole frame
 # ---------------------------------------------------------------------------
@@ -108,10 +139,16 @@ _BATTERY_ELEMS = 1 << 23
 
 
 def _open_loop_maps(y_pad, *, B: int, qp, lam_fx, strong_smoothing: bool,
-                    tu_split: bool = True):
-    """Pass A of the two-pass intra quadtree (rd_mode FULL): batched
-    open-loop 35-mode search and split decision over the whole frame, one
-    dense pass per block size 4, 8, 16, 32.
+                    rd_mode: int = 1, tu_split: bool = True):
+    """Pass A of the two-pass intra quadtree: batched open-loop mode search
+    and split decision over the whole frame, one dense pass per block size
+    4, 8, 16, 32.
+
+    rd_mode (the reference's HOMER_RD_MODES): 1 FULL, all 35 modes; 2 FAST,
+    the 11 modes of _FAST_MODES, then the angular winner refined by +-2 and
+    +-1 one mode at a time (each step from the mode the last one kept,
+    clipped to 2..34; a planar or DC winner re-evaluates itself); 0
+    DIST_ONLY, every decision by distortion alone (lambda 0).
 
     References come from the ORIGINAL plane, so every block of a size is
     independent. A CU may keep its one mode and split the transform into
@@ -127,6 +164,10 @@ def _open_loop_maps(y_pad, *, B: int, qp, lam_fx, strong_smoothing: bool,
     H, W = y_pad.shape
     dev = y_pad.device
     orig = y_pad.to(I32)
+    if rd_mode == 0:
+        lam_fx = torch.zeros_like(lam_fx)
+    subset = _FAST_MODES if rd_mode == 2 else None
+    mlist = const(_mode_list(rd_mode), dev)
     ov = ((lam_fx >> 4) * 14) >> 4
     best = {}
     for S in (4, 8, 16, 32):
@@ -148,23 +189,44 @@ def _open_loop_maps(y_pad, *, B: int, qp, lam_fx, strong_smoothing: bool,
                 left.reshape(-1, 2 * S), corner.reshape(-1), hl.reshape(-1),
                 ht.reshape(-1))
         step = max(1, _BATTERY_ELEMS // (35 * S * S))
-        costs = []
+        costs, picks = [], []
         for i in range(0, nby * nbx, step):
+            part = tuple(t[i:i + step] for t in flat)
             _, _, cost = encode_block_all_modes(
-                *(t[i:i + step] for t in flat), size=S, c_idx=0, qp=qp,
-                lam_fx=lam_fx, strong_smoothing=strong_smoothing and S == 32,
-                sign_hiding=False)
-            costs.append(cost.to(I32))
-        costv = torch.cat(costs).reshape(nby, nbx, 35)
-        best[S] = (first_argmin(costv, 2).to(I32),
-                   costv.min(dim=2).values, costv)
+                *part, size=S, c_idx=0, qp=qp, lam_fx=lam_fx,
+                strong_smoothing=strong_smoothing and S == 32,
+                sign_hiding=False, mode_set=subset)
+            cost = cost.to(I32)
+            costs.append(cost)
+            if subset is not None:
+                m = mlist[first_argmin(cost, 1)]
+                bc = cost.min(dim=1).values
+                for dm in (-2, -1, 1, 2):
+                    mm = torch.where(m >= 2, (m + dm).clamp(2, 34), m)
+                    c1 = _cost_one_mode(
+                        *part, mm, size=S, qp=qp, lam_fx=lam_fx,
+                        strong_smoothing=strong_smoothing and S == 32
+                    ).to(I32)
+                    take = c1 < bc
+                    m = torch.where(take, mm, m)
+                    bc = torch.where(take, c1, bc)
+                picks.append((m.to(I32), bc))
+        costv = torch.cat(costs).reshape(nby, nbx, -1)
+        if subset is None:
+            best[S] = (first_argmin(costv, 2).to(I32),
+                       costv.min(dim=2).values, costv)
+        else:
+            best[S] = (torch.cat([p[0] for p in picks]).reshape(nby, nbx),
+                       torch.cat([p[1] for p in picks]).reshape(nby, nbx),
+                       costv)
 
     tsov = ((lam_fx >> 4) * 8) >> 4     # split flag + extra cbf bins proxy
 
     def tu_opt(vchild):
         """Best same-mode TU-split cost per parent: (cost, mode)."""
         s = _sum4(vchild)
-        return s.min(dim=2).values + tsov, first_argmin(s, 2).to(I32)
+        return (s.min(dim=2).values + tsov,
+                mlist[first_argmin(s, 2)].to(I32))
 
     m4, c4, v4 = best[4]
     m8, c8, v8 = best[8]
@@ -420,10 +482,13 @@ def unpack_intra_wire(wire, H: int, W: int):
 def encode_frame_intra(y_pad, u_pad, v_pad, *, B: int, qp,
                        strong_smoothing: bool = True,
                        sign_hiding: bool = False, split_rdo: bool = False,
-                       tu_depth: int = 0):
-    """Encode one padded frame all-intra with B x B CTUs (rd_mode FULL): the
-    reference's `encode_frame_intra` at B <= 32 and its
-    `encode_frame_intra_ctu64` at B 64.
+                       rd_mode: int = 1, tu_depth: int = 0):
+    """Encode one padded frame all-intra with B x B CTUs: the reference's
+    `encode_frame_intra` at B <= 32 and its `encode_frame_intra_ctu64` at
+    B 64. `rd_mode` (1 FULL, 2 FAST, 0 DIST_ONLY) sets the modes and the
+    lambda of the mode search: pass A's with split RDO, the closed-loop
+    search's without (FAST: the 11-mode subset, no refinement; DIST_ONLY:
+    lambda 0).
 
     The wavefront runs over CTU anti-diagonals. The largest intra CU is 32:
     a 64-CTU codes its four 32-blocks one after another in z-order inside
@@ -472,7 +537,8 @@ def encode_frame_intra(y_pad, u_pad, v_pad, *, B: int, qp,
     if split_rdo:
         mode_units, depth_units, part_units, trd_units = _open_loop_maps(
             y_pad, B=cb, qp=qp, lam_fx=lam,
-            strong_smoothing=strong_smoothing, tu_split=tu_on)
+            strong_smoothing=strong_smoothing, rd_mode=rd_mode,
+            tu_split=tu_on)
         eff_depth, eff_nxn = _effective_tree(depth_units, part_units,
                                              trd_units, tu_on)
         mode_blk, depth_blk, nxn_blk = (per_ctu(m) for m in
@@ -482,6 +548,9 @@ def encode_frame_intra(y_pad, u_pad, v_pad, *, B: int, qp,
         nxn_host = nxn_blk.cpu().numpy()
     else:
         mode_cb = z(nby, nbx, B // cb, B // cb)          # one mode per top-level block
+        mode_set = _FAST_MODES if rd_mode == 2 else None
+        mlist = const(_mode_list(rd_mode), dev)
+        lam_s = torch.zeros_like(lam) if rd_mode == 0 else lam
 
     two = lambda a: torch.cat([a, a])
     for d in range(nbx + 2 * (nby - 1)):
@@ -523,13 +592,13 @@ def encode_frame_intra(y_pad, u_pad, v_pad, *, B: int, qp,
                     strong_smoothing=strong_smoothing, W=W)
             else:
                 lv35, rc35, cost = encode_block_all_modes(
-                    oc, *refs, size=cb, c_idx=0, qp=qp, lam_fx=lam,
+                    oc, *refs, size=cb, c_idx=0, qp=qp, lam_fx=lam_s,
                     strong_smoothing=strong_smoothing,
-                    sign_hiding=sign_hiding)
+                    sign_hiding=sign_hiding, mode_set=mode_set)
                 mi = first_argmin(cost, 1)
                 lanes = torch.arange(nl, device=dev)
                 lv, rc = lv35[lanes, mi], rc35[lanes, mi]
-                mode_cb[rs, cs, hy, hx] = mi.to(I32)
+                mode_cb[rs, cs, hy, hx] = mlist[mi].to(I32)
             lev_l[:, cy:cy + cb, cx:cx + cb] = lv
             rec_l[:, cy:cy + cb, cx:cx + cb] = rc
         out = {"y": (lev_l, rec_l)}

@@ -46,7 +46,7 @@ import hashlib
 
 import numpy as np
 
-from ..config import BitrateMode, EncoderConfig, PerformanceMode
+from ..config import BitrateMode, EncoderConfig, PerformanceMode, RDMode
 from ..validate import de265
 from .synth import synth_clip
 
@@ -139,6 +139,55 @@ RUNS = {
     "vbr_fastest_720p": dict(width=1280, height=720, frames=17, seed=0,
                              chunk=8, over=dict(bitrate_mode="VBR",
                                                 bitrate=400)),
+    # B frames (gop_size 2): IBP through push_frame / flush ("push")
+    "ibp_small": dict(width=128, height=96, frames=8, seed=3, chunk=3,
+                      push=True, over=dict(gop_size=2, intra_period=0)),
+    "ibp_ip4_small": dict(width=128, height=96, frames=6, seed=3, chunk=3,
+                          push=True, over=dict(gop_size=2, intra_period=4)),
+    "ibp_odd_small": dict(width=128, height=96, frames=5, seed=3, chunk=3,
+                          push=True, over=dict(gop_size=2)),
+    "ibp_vbr_small": dict(width=128, height=96, frames=10, seed=3, chunk=3,
+                          push=True,
+                          over=dict(_RC8, gop_size=2, bitrate_mode="VBR")),
+    "ibp_cbr_fast_small": dict(width=128, height=96, frames=8, seed=3,
+                               chunk=3, push=True, config="fast",
+                               over=dict(_RC8, gop_size=2,
+                                         bitrate_mode="CBR")),
+    "ibp_fast_small": dict(width=128, height=96, frames=8, seed=3, chunk=3,
+                           push=True, config="fast", over=dict(gop_size=2)),
+    "ibp_wpp_small": dict(width=128, height=96, frames=6, seed=3, chunk=3,
+                          push=True, config="fast",
+                          over=dict(gop_size=2, wpp=True)),
+    "ibp_padded_small": dict(width=120, height=88, frames=6, seed=3,
+                             chunk=3, push=True, config="fast",
+                             over=dict(gop_size=2)),
+    "ibp_scene_small": dict(width=128, height=96, frames=6, seed=3, chunk=3,
+                            push=True, cut=4, over=dict(gop_size=2)),
+    "ibp_frames_small": dict(width=128, height=96, frames=6, seed=3,
+                             chunk=3, config="fast", over=dict(gop_size=2)),
+    "ibp_fastest_720p": dict(width=1280, height=720, frames=10, seed=0,
+                             chunk=8, push=True, over=dict(gop_size=2)),
+    "ibp_fast_720p": dict(width=1280, height=720, frames=10, seed=0,
+                          chunk=8, push=True, config="fast",
+                          over=dict(gop_size=2)),
+    # all-intra (intra_period 1) in every rd_mode; the last is BASELINE.md's
+    # configuration 1 (CTU 64, rd FAST, no SAO)
+    **{f"allintra_rd{rd}_small": dict(
+        width=128, height=96, frames=2, seed=3, chunk=3, config="fast",
+        over=dict(intra_period=1, rd_mode=RDMode(rd).name))
+       for rd in (0, 1, 2)},
+    **{f"allintra_fastest_rd{rd}_small": dict(
+        width=128, height=96, frames=2, seed=3, chunk=3,
+        over=dict(intra_period=1, rd_mode=RDMode(rd).name))
+       for rd in (0, 2)},
+    **{f"allintra64_rd{rd}_small": dict(
+        width=192, height=128, frames=2, seed=3, chunk=3, config="ctu64",
+        over=dict(intra_period=1, rd_mode=RDMode(rd).name))
+       for rd in (0, 1, 2)},
+    "allintra_rdfast64_720p": dict(width=1280, height=720, frames=2, seed=0,
+                                   chunk=8, config="ctu64",
+                                   over=dict(intra_period=1, rd_mode="FAST",
+                                             sample_adaptive_offset=False)),
 }
 
 # Runs the JAX package cannot code (it raises TypeError building the
@@ -228,6 +277,8 @@ def config_from(kw: dict) -> EncoderConfig:
     kw["performance_mode"] = PerformanceMode[kw["performance_mode"]]
     if "bitrate_mode" in kw:
         kw["bitrate_mode"] = BitrateMode[kw["bitrate_mode"]]
+    if "rd_mode" in kw:
+        kw["rd_mode"] = RDMode[kw["rd_mode"]]
     return EncoderConfig(**kw)
 
 
@@ -245,10 +296,13 @@ def run_config(name: str) -> EncoderConfig:
 
 def clip(name: str) -> list:
     """The frames [(y, u, v), ...] of one of RUNS or DECODER_RUNS, made
-    from its seed."""
+    from its seed; in a run with `cut` = k the frames from k on are
+    negatives (255 - sample), a scene cut at frame k."""
     r = run_spec(name)
-    return list(synth_clip(r["width"], r["height"], r["frames"],
-                           seed=r["seed"]))
+    frames = list(synth_clip(r["width"], r["height"], r["frames"],
+                             seed=r["seed"]))
+    k = r.get("cut", len(frames))
+    return frames[:k] + [tuple(255 - p for p in f) for f in frames[k:]]
 
 
 def _smooth(rng, h: int, w: int, amp: float, cell: int) -> np.ndarray:
@@ -295,6 +349,20 @@ def array_digest(a) -> str:
 def au_digest(aus) -> list:
     return [{"sha256": hashlib.sha256(a).hexdigest(), "len": len(a)}
             for a in aus]
+
+
+def encode_run(enc, name: str) -> list:
+    """AUs of one of RUNS through an encoder session of either package:
+    frame by frame through push_frame and then flush where the run says
+    "push", else through encode_frames in chunks of its "chunk"."""
+    r = run_spec(name)
+    frames = clip(name)
+    if not r.get("push"):
+        return enc.encode_frames(frames, chunk=r["chunk"])
+    aus = []
+    for f in frames:
+        aus += enc.push_frame(*f)
+    return aus + enc.flush()
 
 
 def decode_check(aus, recon_y):

@@ -30,6 +30,7 @@ from homerhevc_tpu_torch.pipeline import p_torch
 from test_torch_ctu64 import (QP, VIS, check_session, fixture, hier_ints,
                               level_encode_both, make_frames, me_hier_both,
                               tree_both)
+from test_torch_ctu64 import one_torch_thread  # noqa: F401 (autouse)
 
 
 def test_level_encode_s8():

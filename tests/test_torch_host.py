@@ -16,6 +16,13 @@ originals, from seeded numpy inputs (numpy only plus the two packages).
                          package's config
   utils.synth, ops.interp, PAD equal
   rate_control           RateControl's methods the same source
+  ops.inter_b            B merge and AMVP candidate lists, MV scaling and
+                         boundary strengths equal on random motion fields
+  explicit P frames      the session's fixed-CU host half (wire, fast
+                         decisions, native maps, rps 2) writes the AU of
+                         the JAX package's build_p_plans + assemble_p_au
+  pipeline.b_golden      build_b_plans' plans give the same B-slice AU
+                         bytes in both packages
 
 Tolerance: exact (integers and bytes).
 """
@@ -24,6 +31,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 import homerhevc_tpu.api as japi
 import homerhevc_tpu.config as jconfig
@@ -455,3 +463,119 @@ def test_rate_control_is_a_copy(method):
     assert trc.RateControl is not jrc.RateControl
     assert inspect.getsource(getattr(trc.RateControl, method)) == \
         inspect.getsource(getattr(jrc.RateControl, method))
+
+
+# ---------------------------------------------------------------------------
+# the host halves of explicit P and B frames
+# ---------------------------------------------------------------------------
+
+def _random_b_field(mod, rng, uh, uw):
+    fld = mod.BMotionField(uh, uw)
+    for y in range(0, uh * 4, 16):
+        for x in range(0, uw * 4, 16):
+            if rng.random() < 0.2:
+                continue                    # left unavailable
+            d = int(rng.integers(0, 3))
+            mv0 = tuple(int(v) for v in rng.integers(-40, 41, 2))
+            mv1 = tuple(int(v) for v in rng.integers(-40, 41, 2))
+            fld.set_cu(x, y, 16, mod.BMotion(d != 1, d != 0,
+                                             mv0 if d != 1 else (0, 0),
+                                             mv1 if d != 0 else (0, 0)))
+    return fld
+
+
+def test_inter_b_candidates_equal():
+    from homerhevc_tpu.ops import inter_b as jb
+    from homerhevc_tpu_torch.ops import inter_b as tb
+    for seed in range(3):
+        fj = _random_b_field(jb, np.random.default_rng(seed), 16, 24)
+        ft = _random_b_field(tb, np.random.default_rng(seed), 16, 24)
+        for x0, y0, size in ((16, 16, 16), (32, 0, 32), (48, 32, 16),
+                             (0, 48, 16)):
+            want = [c.key() for c in jb.merge_candidates_b(fj, x0, y0, size)]
+            got = [c.key() for c in tb.merge_candidates_b(ft, x0, y0, size)]
+            assert got == want
+            for lst in (0, 1):
+                assert (tb.amvp_candidates_b(ft, x0, y0, size, lst, 3, (2, 4))
+                        == jb.amvp_candidates_b(fj, x0, y0, size, lst, 3,
+                                                (2, 4)))
+        cbf = np.random.default_rng(seed).random((16, 24)) < 0.3
+        for a, b in zip(jb.inter_bs_maps_b(fj, 16, cbf),
+                        tb.inter_bs_maps_b(ft, 16, cbf)):
+            np.testing.assert_array_equal(b, a)
+    for mv, tb_, td in (((17, -9), 1, 2), ((-300, 41), -1, 1), ((5, 5), 2,
+                                                                -1)):
+        assert tb.scale_mv(mv, tb_, td) == jb.scale_mv(mv, tb_, td)
+
+
+def _ibp_params(headers, w, h, wpp):
+    """Stream parameters of an IBP session (the three-entry RPS list)."""
+    return _params(headers, w, h, qp=30, num_ref_frames=2, num_reorder_pics=1,
+                   wpp_enabled=wpp,
+                   rps_list=(headers.StRefPicSet(delta_pocs=(2,),
+                                                 used=(True,)),
+                             headers.StRefPicSet(delta_pocs=(1,),
+                                                 used=(True,),
+                                                 pos_delta_pocs=(1,),
+                                                 pos_used=(True,)),
+                             headers.StRefPicSet(delta_pocs=(1,),
+                                                 used=(True,))))
+
+
+@pytest.mark.parametrize("wpp", [False, True])
+@pytest.mark.parametrize("shape", [(2, 3), (4, 5)])
+def test_explicit_p_host_half_matches_build_p_plans(shape, wpp):
+    """An explicit P frame (trailing, or before a scheduled IDR) goes
+    through the fixed-CU path's host half; from the same device arrays it
+    writes the AU that the JAX package's build_p_plans + assemble_p_au
+    write with rps 2."""
+    nby, nbx = shape
+    rng = np.random.default_rng(10 * nby + nbx + wpp)
+    mvs = _random_mvs(rng, nby, nbx)[0]
+    lev = [_random_levels(rng, (nby, nbx, n, n), d).astype(np.int16)
+           for n, d in ((32, 0.02), (16, 0.01), (16, 0.01))]
+    sad = rng.integers(0, 99999, (nby, nbx)).astype(np.int32)
+    meta = np.concatenate([mvs.reshape(-1), sad.reshape(-1)]).astype(np.int32)
+    wire = torch.from_numpy(np.concatenate(
+        [lv.reshape(-1) for lv in lev] + [meta.view(np.int16)]))
+    cfg = tconfig.EncoderConfig(
+        width=32 * nbx, height=32 * nby, qp=30, cu_size=32, gop_size=2,
+        wpp=wpp, sign_hiding=True,
+        performance_mode=tconfig.PerformanceMode.FASTEST_COMPUTATION)
+    enc = tapi.HomerEncoder(cfg, device="cpu")
+    maps, got_sad = enc._fixed_p_maps(wire, 32)
+    np.testing.assert_array_equal(got_sad, sad)
+    got = tassemble.assemble_p_au_from_maps(
+        _ibp_params(theaders, 32 * nbx, 32 * nby, wpp), maps, poc=3,
+        slice_qp=30, rps_idx=2)
+    plan = p_golden.build_p_plans(mvs, *(lv.astype(np.int32) for lv in lev),
+                                  (None, None, None), size=32)
+    assert any(bool(p.merge_flag[0, 0]) for p in plan.ctu_plans)
+    want = jassemble.assemble_p_au(
+        _ibp_params(jheaders, 32 * nbx, 32 * nby, wpp), plan.ctu_plans,
+        poc=3, slice_qp=30, rps_idx=2)
+    assert len(want) > 50 and got == want
+
+
+@pytest.mark.parametrize("wpp", [False, True])
+def test_build_b_plans_b_slice_bytes_equal(wpp):
+    from homerhevc_tpu.pipeline import b_golden as jbg
+    from homerhevc_tpu_torch.pipeline import b_golden as tbg
+    nby, nbx = 3, 4
+    rng = np.random.default_rng(40 + wpp)
+    idc = rng.integers(0, 3, (nby, nbx)).astype(np.int32)
+    mv0 = _random_mvs(rng, nby, nbx)[0]
+    mv1 = _random_mvs(rng, nby, nbx)[0]
+    mv0[idc == 1] = 0
+    mv1[idc == 0] = 0
+    lev = [_random_levels(rng, (nby, nbx, n, n), d)
+           for n, d in ((32, 0.02), (16, 0.01), (16, 0.01))]
+    kw = dict(size=32, poc=1, poc_refs=(0, 2))
+    aus = []
+    for headers, assemble, bg in ((jheaders, jassemble, jbg),
+                                  (theaders, tassemble, tbg)):
+        plan = bg.build_b_plans(idc, mv0, mv1, *lev, (None, None, None), **kw)
+        aus.append(assemble.assemble_p_au(
+            _ibp_params(headers, 32 * nbx, 32 * nby, wpp), plan.ctu_plans,
+            poc=1, slice_qp=32, slice_type=headers.SLICE_B, rps_idx=1))
+    assert len(aus[0]) > 50 and aus[1] == aus[0]

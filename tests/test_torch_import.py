@@ -39,11 +39,14 @@ PORT_MODULES = [
     "homerhevc_tpu_torch.ops.sao_host",
     "homerhevc_tpu_torch.ops.interp",
     "homerhevc_tpu_torch.ops.inter_golden",
+    "homerhevc_tpu_torch.ops.inter_b",
     "homerhevc_tpu_torch.ops.gather",
     "homerhevc_tpu_torch.ops.me",
     "homerhevc_tpu_torch.pipeline.intra_torch",
     "homerhevc_tpu_torch.pipeline.p_torch",
     "homerhevc_tpu_torch.pipeline.p_chunk",
+    "homerhevc_tpu_torch.pipeline.b_golden",
+    "homerhevc_tpu_torch.pipeline.b_torch",
     "homerhevc_tpu_torch.pipeline.assemble",
     "homerhevc_tpu_torch.utils.synth",
     "homerhevc_tpu_torch.utils.fixtures",

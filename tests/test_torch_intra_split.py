@@ -40,6 +40,7 @@ from homerhevc_tpu.pipeline import intra_jax, p_jax
 from homerhevc_tpu_torch.ops import deblock as tdbk
 from homerhevc_tpu_torch.pipeline import intra_torch, p_torch
 from homerhevc_tpu_torch.utils import fixtures as fx
+from test_torch_ctu64 import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_aus.json")

@@ -23,6 +23,7 @@ from homerhevc_tpu.ops.gather_pallas import gather_windows_grid
 from homerhevc_tpu.ops.me_pallas import integer_me_pallas
 from homerhevc_tpu.pipeline import p_jax
 from homerhevc_tpu_torch.ops import gather, me
+from test_torch_ctu64 import one_torch_thread  # noqa: F401 (autouse)
 
 PAD = 72
 

@@ -25,6 +25,7 @@ from homerhevc_tpu_torch.ops import intra as tintra
 from homerhevc_tpu_torch.ops import quant as tquant
 from homerhevc_tpu_torch.ops import sao as tsao
 from homerhevc_tpu_torch.ops import transforms as ttx
+from test_torch_ctu64 import one_torch_thread  # noqa: F401 (autouse)
 
 
 @functools.lru_cache(maxsize=None)

@@ -19,6 +19,7 @@ from homerhevc_tpu.pipeline import p_chunk as jchunk
 from homerhevc_tpu.utils.synth import synth_clip
 from homerhevc_tpu_torch.pipeline import intra_torch, p_torch
 from homerhevc_tpu_torch.pipeline import p_chunk as tchunk
+from test_torch_ctu64 import one_torch_thread  # noqa: F401 (autouse)
 
 W, H = 128, 96
 

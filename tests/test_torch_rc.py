@@ -56,6 +56,7 @@ from test_torch_ctu64 import (TREE_KEYS, check_decodes, eq, fixture,
                               hier_ints, i32, pad_refs)
 from test_torch_ctu64 import make_frames as make_frames64
 from test_torch_tree import VIS, make_frames
+from test_torch_ctu64 import one_torch_thread  # noqa: F401 (autouse)
 
 RC_SESSIONS = ("cbr_fast_small", "vbr_fast_small", "cbr_wpp_small",
                "wpp_fast_small", "vbr_fastest_small", "cbr_scene_small",

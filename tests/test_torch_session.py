@@ -9,6 +9,7 @@ versions) against homerhevc_tpu.api.HomerEncoder(backend="jax").
   * seed_reference carries a P chain over: both sessions seeded from the
     same planes give byte-identical P AUs;
   * settings outside the ported configurations raise NotImplementedError
+    (rd_mode FAST and B frames at cu_size 32 are admitted)
     (the quadtree configurations are in tests/test_torch_session_fast.py,
     CTU 64 and FULL_COMPUTATION in tests/test_torch_ctu64.py and
     tests/test_torch_cu8.py); CBR and WPP are admitted (their streams are
@@ -30,6 +31,7 @@ from homerhevc_tpu.api import HomerEncoder as JaxEncoder
 from homerhevc_tpu_torch.api import HomerEncoder
 from homerhevc_tpu_torch.config import BitrateMode, RDMode
 from homerhevc_tpu_torch.utils import fixtures as fx
+from test_torch_ctu64 import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_aus.json")
@@ -136,7 +138,14 @@ def test_seed_reference_carry_over(small):
     ("rd_mode", RDMode.FAST),
 ])
 def test_out_of_slice_settings_raise(small, field, value):
+    # every rd_mode is ported, and B frames at cu_size 32: those two are
+    # admitted here, and B frames raise at cu_size 64
     cfg = dataclasses.replace(small[3], **{field: value})
+    if field in ("rd_mode", "gop_size"):
+        HomerEncoder(cfg, device="cpu").close()
+        if field == "rd_mode":
+            return
+        cfg = dataclasses.replace(cfg, cu_size=64)
     with pytest.raises(NotImplementedError, match=field):
         HomerEncoder(cfg, device="cpu")
 

@@ -16,7 +16,8 @@ for byte.
   * every stream decodes in libde265 to the port's reconstruction;
   * encode_frame frame by frame equals encode_frames; seed_reference
     continues a FAST P chain; the settings still outside (cu_size 16 in
-    every mode among them) raise NotImplementedError naming the setting.
+    every mode among them) raise NotImplementedError naming the setting
+    (every rd_mode, and B frames at cu_size 32, are admitted).
 """
 
 import dataclasses
@@ -31,6 +32,7 @@ import pytest
 from homerhevc_tpu_torch.api import HomerEncoder
 from homerhevc_tpu_torch.config import BitrateMode, RDMode
 from homerhevc_tpu_torch.utils import fixtures as fx
+from test_torch_ctu64 import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_aus.json")
@@ -219,7 +221,14 @@ def test_cu16_raises(mode):
     ("bit_depth", 10),
 ])
 def test_out_of_slice_settings_raise(field, value):
+    # every rd_mode is ported, and B frames at cu_size 32: those are
+    # admitted here, and B frames raise at cu_size 64
     cfg = dataclasses.replace(fx.fast_config(128, 96), **{field: value})
+    if field in ("rd_mode", "gop_size"):
+        HomerEncoder(cfg, device="cpu").close()
+        if field == "rd_mode":
+            return
+        cfg = dataclasses.replace(cfg, cu_size=64)
     with pytest.raises(NotImplementedError, match=field):
         HomerEncoder(cfg, device="cpu")
 

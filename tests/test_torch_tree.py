@@ -40,6 +40,7 @@ from homerhevc_tpu_torch.ops import deblock as tdbk
 from homerhevc_tpu_torch.ops import me as tme
 from homerhevc_tpu_torch.pipeline import p_chunk as tchunk
 from homerhevc_tpu_torch.pipeline import p_torch
+from test_torch_ctu64 import one_torch_thread  # noqa: F401 (autouse)
 
 H, W = 96, 160              # padded size; the visible picture is smaller
 VIS = (88, 152)

@@ -1,6 +1,7 @@
 """Where the time goes in the torch port on one GPU at 1280x720.
 
-    python3 tools/profile_torch_port.py [fastest|fast|default|full64|cbr]
+    python3 tools/profile_torch_port.py [fastest|fast|default|full64|cbr|
+                                         ibp_fastest|ibp_fast]
                                         [--idr-ctus RxC] [--no-idr-profile]
                                         [--no-idr]
 
@@ -12,6 +13,12 @@ search 16), `full64` FULL_COMPUTATION at CTU 64, search 64 (8x8 inter
 CUs), and `cbr` the `fast` configuration under CBR at 400 kbps with WPP:
 its P chunk codes per-CTU-row QPs, the frame QPs and row plans issued by
 the session's rate control after the IDR, as encode_frames issues them.
+`ibp_fastest` and `ibp_fast` are `fastest` and `fast` with B frames
+(gop_size 2): the session codes I0, then P2 and B1 through push_frame, and
+B1 is profiled alone: its device stage (b_torch.b_frame_device) under the
+profiler, then each host step of the session's B frame between
+synchronising timers (the wire copy, the merge/AMVP walk build_b_plans, the
+AU assembly) beside the whole B frame; nothing else runs in these modes.
 
 For one P chunk of 8 frames (device stage only, no host CABAC) and for one
 IDR device stage, after a warm-up, torch.profiler (CPU + CUDA activities)
@@ -127,7 +134,8 @@ class StageClock:
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("config", nargs="?", default="fast",
-                    choices=("fastest", "fast", "default", "full64", "cbr"))
+                    choices=("fastest", "fast", "default", "full64", "cbr",
+                             "ibp_fastest", "ibp_fast"))
     ap.add_argument("--idr-ctus", default=None, metavar="RxC",
                     help="profile the IDR on the top-left R x C CTUs only "
                          "(default: 3x8 at CTU 32, 2x4 at CTU 64, 0x0 = "
@@ -158,10 +166,14 @@ def main(argv) -> int:
             w, h, performance_mode="FULL_COMPUTATION", me_search_range=64),
         "cbr": lambda w, h: fx.fast_kwargs(
             w, h, bitrate_mode="CBR", bitrate=400, wpp=True),
+        "ibp_fastest": lambda w, h: fx.slice_kwargs(w, h, gop_size=2),
+        "ibp_fast": lambda w, h: fx.fast_kwargs(w, h, gop_size=2),
     }[args.config](1280, 720))
     print(f"configuration {args.config}: {cfg.performance_mode.name}, "
           f"cu_size {cfg.cu_size}, search {cfg.me_search_range}, on {card}",
           flush=True)
+    if cfg.gop_size >= 2:
+        return profile_b_frame(cfg, dev)
 
     frames = list(synth_clip(1280, 720, 9, seed=0))
     enc = HomerEncoder(cfg, device=dev)
@@ -259,6 +271,67 @@ def main(argv) -> int:
                 f"{enc.pw // ctu + 2 * (enc.ph // ctu - 1)})",
                 lambda: idr(planes), per=diagonals, unit="diagonal",
                 warm=False)
+    enc.close()
+    return 0
+
+
+def profile_b_frame(cfg, dev) -> int:
+    """B1 of I0 P2 B1 at 1280x720: its device stage under the profiler, then
+    the session's B frame step by step between synchronising timers."""
+    import numpy as np
+    import torch
+
+    from homerhevc_tpu_torch.api import HomerEncoder
+    from homerhevc_tpu_torch.entropy import headers
+    from homerhevc_tpu_torch.pipeline import assemble, b_golden, b_torch
+    from homerhevc_tpu_torch.utils.synth import synth_clip
+
+    frames = list(synth_clip(1280, 720, 3, seed=0))
+    enc = HomerEncoder(cfg, device=dev, fetch_recon=False)
+    t0 = time.perf_counter()
+    enc.push_frame(*frames[0])
+    print(f"first IDR through push_frame (cold): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    ref0 = enc._ref
+    enc.push_frame(*frames[1])                      # waits for its anchor
+    enc.push_frame(*frames[2])                      # P2, then B1
+    ref1 = enc._ref
+    cur = tuple(torch.as_tensor(p, device=dev)
+                for p in enc._pad_frame(*frames[1]))
+    qp = cfg.qp + 2
+    kw = dict(B=enc.ctu, qp=qp, search=cfg.me_search_range,
+              me_precision=int(cfg.motion_estimation_precision),
+              sign_hiding=cfg.sign_hiding, vis=(cfg.height, cfg.width))
+
+    def device_stage():
+        return b_torch.b_frame_device(*cur, *ref0, *ref1, **kw)
+
+    _window("b_frame_device", device_stage, unit="B frame")
+    steps = {}
+    out = device_stage()
+    steps["device stage"] = _synced_ms(device_stage)
+    wire = [None]
+    steps["wire copy"] = _synced_ms(
+        lambda: wire.__setitem__(0, out["wire"].cpu().numpy()))
+    w = b_torch.unpack_b_wire(wire[0], enc.ph, enc.pw, enc.ctu)
+    plan = [None]
+
+    def walk():
+        plan[0] = b_golden.build_b_plans(
+            w["idc"], w["mv0"], w["mv1"],
+            *(w[k].astype(np.int32) for k in ("lev_y", "lev_u", "lev_v")),
+            (None, None, None), size=enc.ctu, poc=1, poc_refs=(0, 2))
+
+    steps["build_b_plans (merge/AMVP walk)"] = _synced_ms(walk)
+    steps["assemble_p_au (CABAC)"] = _synced_ms(
+        lambda: assemble.assemble_p_au(
+            enc.params, plan[0].ctu_plans, poc=1, slice_qp=qp,
+            slice_type=headers.SLICE_B, rps_idx=1))
+    whole = _synced_ms(lambda: enc._encode_b((1, frames[1]), ref0, ref1))
+    print(f"B frame through the session: {whole:.1f} ms; its steps "
+          f"(synchronised, timed one by one):", flush=True)
+    for k, v in steps.items():
+        print(f"  {k:<34s} {v:9.1f} ms  {v / whole:6.1%}", flush=True)
     enc.close()
     return 0
 
