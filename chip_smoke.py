@@ -19,8 +19,11 @@ Phases, each of which raises on failure (non-zero exit, no result line):
                41, 19) and CU 64 (G 73, 35), and the quadtree path's refine
                window of the hierarchical search, luma window and chroma
                pair at CU 8 (G 14, 17, 7), 16 (22, 25, 11), 32 (38, 41, 19)
-               and 64 (70, 73, 35). Then times from CUDA graph replays at
-               the 720p call sites: kernel, plain version, an empty kernel
+               and 64 (70, 73, 35); at 1088x1920 (1080p, nb 2,040), me_sad
+               at B 32, S 16 and the fixed-CU gathers (G 41, 19) on the
+               1080p clip's first two frames. Then times from CUDA graph
+               replays at the 720p and 1080p call sites: kernel, plain
+               version, an empty kernel
                of the same grid (floor_ms), one PyTorch indexing call for
                the same gather (library_ms), gather_win's generic (any-G)
                kernel (generic_ms), and the bound computed from the shapes
@@ -67,7 +70,20 @@ Phases, each of which raises on failure (non-zero exit, no result line):
                of the rate control's state after the IDR, and its P frames
                are timed here, in the run that counts the launches); libde265
                decode check where the library loads; each path's small
-               fixture clip too, with and without the kernels
+               fixture clip too, with and without the kernels;
+               then cli_cbr_scene_fastest_1080p, BASELINE.md's
+               configuration 4 through the port's CLI (app.main, in this
+               process, no -device: the card): synth_clip(1920, 1080, 10),
+               frames 5-9 negated, -performance_mode 3 -cu_size 32
+               -search_range 16 -bitrate_mode 1 -bitrate 1250 -rd 2 -sao 1
+               -sign_hiding 1 -metrics -o-raw -profiling; its .265 and
+               -o-raw SHA-256, per-frame lines (I at POC 0 and at POC 5,
+               the scene-change IDR) and profiler stage names must equal
+               the JAX CLI's (the fixture's "cli" entry); launches per
+               frame asserted (me_sad 1, gather_win 2 per P frame and per
+               scene-cut attempt); the same frames through
+               HomerEncoder(cfg, kernels=False).encode_frame must give the
+               same stream and launch nothing
   5. timing  — after warm-up: 16 P frames end to end on the fixed-CU path,
                8 on each quadtree path (CTU 32 and 64); a P chunk's device
                stage on each; the fixed-CU IDR's device stage, warm, and a
@@ -77,7 +93,10 @@ Phases, each of which raises on failure (non-zero exit, no result line):
                stage once more, warm, pass B being all but its pass A; on
                each IBP path the 9 frames
                after the IDR end to end (fps) and each B frame on its own
-               (ms, host clock ending in a synchronize)
+               (ms, host clock ending in a synchronize); the 1080p CLI
+               path's IDR cold (its first run) and warm (the kernels=False
+               session), then one more CLI run, warm: ms per frame, ms
+               per P frame, the CLI's fps and the profiler's breakdown
 
 The last three lines are the per-kernel JSON record, the card's name and
 power limit, and {"ok": true, "device": {...}}.
@@ -88,8 +107,10 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -439,10 +460,11 @@ def time_me(dev, cur, ref, mc, H, W, B, S):
     return t
 
 
-def phase_kernels(dev, frames, small_frames, small64_frames):
+def phase_kernels(dev, frames, small_frames, small64_frames, frames1080):
     """Kernel vs plain at the 720p call sites of every path (CTU 32 at
-    736x1280, CTU 64 at 768x1280), the small fixture clips' shapes and
-    search 8; times and bounds at 720p. Returns per-kernel records."""
+    736x1280, CTU 64 at 768x1280), the fixed-CU path's sites at 1080p
+    (1088x1920, nb 2,040), the small fixture clips' shapes and search 8;
+    times and bounds at 720p and 1080p. Returns per-kernel records."""
     import torch
 
     from homerhevc_tpu_torch.ops import gather, me
@@ -469,8 +491,15 @@ def phase_kernels(dev, frames, small_frames, small64_frames):
         me_err = max(me_err, check_me(dev, fr, h, w, b, s,
                                       f"{h}x{w}, B={b}, S={s}")[1])
 
+    # BASELINE.md configuration 4: 1080p, coded as 1088 rows of 32-CTUs
+    H1, W1 = 1088, 1920
+    cases1080, err = check_me(dev, frames1080, H1, W1, B, S,
+                              "1088x1920, B=32, S=16")
+    me_err = max(me_err, err)
+
     me_sites = [time_me(dev, *cases["real uint8"], H, W, B, S),
-                time_me(dev, *cases64["real uint8"], H64, W, 64, S)]
+                time_me(dev, *cases64["real uint8"], H64, W, 64, S),
+                time_me(dev, *cases1080["real uint8"], H1, W1, B, S)]
     records = {"me_sad": dict(
         name="me_sad", route="cuda", source=me.ME_SAD.source,
         replaces="homerhevc_tpu/ops/me_pallas.py:27", max_abs_err=me_err,
@@ -501,6 +530,12 @@ def phase_kernels(dev, frames, small_frames, small64_frames):
         dev, gather_sites(dev, small64_frames[0], best_s, 128, 192, 64, S),
         "128x192, fixed CU 64"))
     sites.update(sites64)
+    cur, ref, mc = cases1080["real uint8"]
+    _, best = me.integer_me_plain(cur, ref, mc, B=B, search=S, pad=PAD)
+    sites1080 = {f"1080p {k}": v for k, v in gather_sites(
+        dev, frames1080[0], best, H1, W1, B, S).items()}
+    gw_err = max(gw_err, check_gather(dev, sites1080, "1088x1920, fixed CU"))
+    sites.update(sites1080)
     # the quadtree path's sites, search 64 (frame 1 against frame 0): CU 16
     # and 32 at CTU 32, CU 8 and 64 at CTU 64
     for h, w, fr, sizes, label in (
@@ -905,6 +940,159 @@ def run_ibp_path(dev, name, fixture):
     return launches, ref0
 
 
+CLI_PATH = "cli_cbr_scene_fastest_1080p"
+
+
+def run_cli(argv):
+    """The port's CLI (homerhevc_tpu_torch.app.main) in this process, its
+    standard output captured: (exit code, output text, per encode_frame
+    call (launch deltas (me_sad, gather_win), host-clocked ms))."""
+    import contextlib
+    import io
+
+    from homerhevc_tpu_torch import app
+    from homerhevc_tpu_torch.api import HomerEncoder
+    from homerhevc_tpu_torch.ops.gather import GATHER_WIN
+    from homerhevc_tpu_torch.ops.me import ME_SAD
+
+    frames = []
+    encode_frame = HomerEncoder.encode_frame
+
+    def counted(self, *args, **kw):
+        before = (ME_SAD.launches, GATHER_WIN.launches)
+        t = time.perf_counter()
+        au = encode_frame(self, *args, **kw)
+        frames.append(((ME_SAD.launches - before[0],
+                        GATHER_WIN.launches - before[1]),
+                       (time.perf_counter() - t) * 1e3))
+        return au
+
+    out = io.StringIO()
+    HomerEncoder.encode_frame = counted
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = app.main(argv)
+    finally:
+        HomerEncoder.encode_frame = encode_frame
+    return rc, out.getvalue(), frames
+
+
+def run_cli_path(dev, fixture, workdir: str):
+    """BASELINE.md configuration 4 at 1920x1080 (1088 coded rows) through
+    the port's CLI on the default device: CBR at 1250 kbps with its VBV
+    model, FASTEST, SAO, sign hiding, -metrics -o-raw -profiling, a scene
+    cut at frame 5. The .265, the -o-raw file, the per-frame lines and the
+    profiler's stage names must equal the JAX CLI's (the fixture's "cli"
+    entry); then the same frames through HomerEncoder(cfg, kernels=False)
+    frame by frame. Returns the launch counts and the per-frame record."""
+    import hashlib
+
+    import numpy as np
+
+    from homerhevc_tpu_torch import app
+    from homerhevc_tpu_torch.api import HomerEncoder
+    from homerhevc_tpu_torch.ops.gather import GATHER_WIN
+    from homerhevc_tpu_torch.ops.me import ME_SAD
+    from homerhevc_tpu_torch.utils import fixtures as fx
+
+    want = fixture["cli"][CLI_PATH]
+    yuv, out, raw = (os.path.join(workdir, f) for f in ("in.yuv", "out.265",
+                                                        "rec.yuv"))
+    fx.write_cli_input(CLI_PATH, yuv)
+    argv = fx.cli_argv(CLI_PATH, yuv, out, raw)
+    for k in (ME_SAD, GATHER_WIN):
+        k.launches = 0
+    rc, text, frames = run_cli(argv)                # no -device: the card
+    launches = {"me_sad": ME_SAD.launches, "gather_win": GATHER_WIN.launches}
+    for line in text.splitlines():
+        log("    | " + line)
+    if rc != 0:
+        raise AssertionError(f"{CLI_PATH}: the CLI exited with {rc}")
+    rec = fx.cli_record(text, out, raw)
+    for key in ("stream", "raw", "lines", "frames", "tail", "stages"):
+        if rec[key] != want[key]:
+            raise AssertionError(f"{CLI_PATH}: {key} differs from the JAX "
+                                 f"CLI's: {rec[key]} != {want[key]}")
+    types = [ln.split(", ")[1] for ln in rec["lines"]]
+    if types != ["I"] + ["P"] * 4 + ["I"] + ["P"] * 4:
+        raise AssertionError(f"{CLI_PATH}: frame types {types}")
+    log(f"  {CLI_PATH}: the port CLI's .265 ({rec['stream']['len']} bytes, "
+        f"SHA-256 {rec['stream']['sha256'][:16]}...) and -o-raw file "
+        f"({rec['raw']['len']} bytes) == the JAX CLI's; every per-frame line "
+        f"equal (I at POC 0 and 5: the scene-change IDR); stage names equal")
+    # launches per frame: a P frame runs me_sad once and gathers the luma
+    # window and the chroma pair; the scene-cut frame runs its P attempt,
+    # then the IDR, which launches nothing
+    per_frame = [f[0] for f in frames]
+    expect = [(0, 0)] + [(1, 2)] * 9
+    if per_frame != expect or launches != {"me_sad": 9, "gather_win": 18}:
+        raise AssertionError(f"{CLI_PATH}: launches per frame {per_frame}, "
+                             f"expected {expect}; totals {launches}")
+    log(f"  {CLI_PATH}: launches (me_sad, gather_win) per frame {per_frame}"
+        f" (the scene cut's P attempt at POC 5 included); totals {launches}")
+
+    # the same frames through the API with the plain versions
+    args = app.parse_args(argv)
+    cfg = app.config_from_args(args, 1920, 1080)
+    plain = HomerEncoder(cfg, device=dev, kernels=False)
+    clip = fx.clip(CLI_PATH)
+    t = time.perf_counter()
+    aus = [plain.encode_frame(*clip[0])]
+    idr_warm_s = time.perf_counter() - t
+    aus += [plain.encode_frame(*f) for f in clip[1:]]
+    plain.close()
+    digest = hashlib.sha256(b"".join(aus)).hexdigest()
+    if digest != want["stream"]["sha256"]:
+        raise AssertionError(f"{CLI_PATH}: kernels=False AUs differ from the "
+                             "JAX CLI's stream")
+    if {"me_sad": ME_SAD.launches,
+            "gather_win": GATHER_WIN.launches} != launches:
+        raise AssertionError(f"{CLI_PATH}: kernels=False run launched a "
+                             "kernel")
+    with open(raw, "rb") as f:
+        last = np.frombuffer(f.read(), np.uint8)[-1920 * 1080 * 3 // 2:]
+    if not np.array_equal(last[:1920 * 1080].reshape(1080, 1920),
+                          plain.last_recon[0]):
+        raise AssertionError(f"{CLI_PATH}: kernels=False recon differs")
+    log(f"  {CLI_PATH}: kernels=False run through HomerEncoder.encode_frame:"
+        " AUs == the JAX CLI's stream, last recon == -o-raw, nothing "
+        f"launched; its IDR (the second 1080p IDR of this process) "
+        f"{idr_warm_s:.2f} s")
+    return launches, dict(frames=frames, idr_warm_s=idr_warm_s)
+
+
+def cli_timing(dev, fixture, workdir: str, first, card: str) -> None:
+    """The CLI path's numbers: its first run's IDR (cold) and the warm
+    IDR of the kernels=False session (phase 4), then the CLI once more,
+    warm: per-frame ms (host clock; each frame ends in the -metrics recon
+    fetch, which waits for the card), ms per P frame, the CLI's own fps
+    and the profiler's stage breakdown."""
+    from homerhevc_tpu_torch.utils import fixtures as fx
+
+    yuv, out, raw = (os.path.join(workdir, f) for f in ("in.yuv", "out.265",
+                                                        "rec.yuv"))
+    rc, text, frames = run_cli(fx.cli_argv(CLI_PATH, yuv, out, raw))
+    if rc != 0:
+        raise AssertionError(f"{CLI_PATH}: the warm CLI run exited {rc}")
+    rec = fx.cli_record(text, out, raw)
+    if rec["stream"] != fixture["cli"][CLI_PATH]["stream"]:
+        raise AssertionError(f"{CLI_PATH}: the warm CLI run's stream differs")
+    lines = text.splitlines()
+    final = next(ln for ln in lines if " frames in " in ln)
+    ms = [f[1] for f in frames]
+    p_ms = [m for k, m in enumerate(ms) if k not in (0, 5)]
+    log(f"  {CLI_PATH}: IDR at POC 0, cold (first CLI run): "
+        f"{first['frames'][0][1]:.1f} ms; IDR warm (kernels=False session): "
+        f"{first['idr_warm_s'] * 1e3:.1f} ms; on {card}")
+    log(f"  {CLI_PATH}: warm CLI run, ms per frame "
+        f"{', '.join(f'{m:.1f}' for m in ms)} (POC 5: P attempt + scene-cut "
+        f"IDR {ms[5]:.1f} ms); P frames mean {sum(p_ms) / len(p_ms):.1f} ms "
+        f"with -metrics; the CLI's line: {final}; on {card}")
+    report = lines[lines.index("profiler: stage breakdown") + 1:]
+    log(f"  {CLI_PATH}: profiler (warm run): "
+        + "; ".join(" ".join(ln.split()[:3]) for ln in report))
+
+
 def ibp_timing(dev, name, ref0, card: str) -> None:
     """IBP end to end after the IDR, warm: the 9 frames (4 anchor P, 4 B,
     the explicit P) from the IDR's planes, twice; the second run's frames
@@ -1077,7 +1265,8 @@ def main() -> int:
 
     frames = clip("720p")
     log("[3/5] kernels vs plain (exact equality):")
-    records = phase_kernels(dev, frames, clip("small"), clip("default_small"))
+    records = phase_kernels(dev, frames, clip("small"), clip("default_small"),
+                            clip(CLI_PATH)[:2])
 
     log("[4/5] main paths at 1280x720:")
     by_path = {}
@@ -1086,6 +1275,10 @@ def main() -> int:
                                  {p: r[1] for p, r in by_path.items()})
     for name in IBP_PATHS:
         by_path[name] = run_ibp_path(dev, name, fixture)
+    log("[4/5] BASELINE.md configuration 4 at 1920x1080 through the port's "
+        "CLI:")
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    by_path[CLI_PATH] = run_cli_path(dev, fixture, workdir)
     for kernel, rec in records.items():
         rec["launches_by_path"] = {p: c[0][kernel]
                                    for p, c in by_path.items()}
@@ -1105,6 +1298,8 @@ def main() -> int:
                   card, rd_modes=(2, 1, 0))
     for name in IBP_PATHS:
         ibp_timing(dev, name, by_path[name][1], card)
+    cli_timing(dev, fixture, workdir, by_path[CLI_PATH][1], card)
+    shutil.rmtree(workdir)
 
     print(json.dumps({"kernels": list(records.values())}))
     print(card)

@@ -22,9 +22,12 @@ cu_size 64, wpp_shards > 1 and bit_depth != 8 raise NotImplementedError
 naming the setting.
 
 Layer map:
+  app.py                  — the console app (homer_app_torch.py launches
+                            it): homer_app.py's flags and printed lines
   api.py                  — HomerEncoder session (IDR + chunked P frames,
-                            streaming IBP); runs on the CUDA device unless
-                            told device="cpu"
+                            per-frame encode_frame, streaming IBP; an
+                            optional stage profiler), write_annex_b; runs
+                            on the CUDA device unless told device="cpu"
   config.py               — EncoderConfig and its enums
   device.py               — device checks and int32 helpers
   tables.py               — numpy spec tables + torch twins
@@ -41,8 +44,9 @@ Layer map:
                             B frames), assemble (headers + slice data ->
                             Annex-B)
   kernels/                — hand-written CUDA kernels for sm_90a + build
-  utils/, validate/       — synthetic clips, the reference runs' fixtures
-                            helpers, libde265 decode check
+  utils/, validate/       — synthetic clips, YUV file I/O, PSNR, the stage
+                            profiler, the reference runs' fixtures helpers,
+                            libde265 decode check
 """
 
 __version__ = "0.4.0"

@@ -1,6 +1,7 @@
 """Public encoder session of the PyTorch/CUDA port.
 
     enc = HomerEncoder(cfg)                    # on the card; raises without one
+    au = enc.encode_frame(y, u, v)             # one frame, one AU
     aus = enc.encode_frames(frames, chunk=8)   # Annex-B bytes, one per AU
     aus = enc.push_frame(y, u, v)              # streaming, display order:
     aus += enc.flush()                         # 0+ AUs each, decode order
@@ -45,6 +46,7 @@ from .ops.sao import sao_stage_device
 from .pipeline import (assemble, b_golden, b_torch, intra_torch, p_chunk,
                        p_torch)
 from .rate_control import RateControl
+from .utils.profiler import NULL
 
 SCENE_SAD_PER_PIXEL = 25.0     # mean best-ME-cost per pixel => scene cut
 
@@ -97,10 +99,14 @@ class HomerEncoder:
     enums of another package compare unequal to these).
     `kernels=False` runs the plain PyTorch versions of the hand-written
     CUDA kernels on a CUDA device (for comparison runs only); on a CPU
-    device the plain versions always run."""
+    device the plain versions always run.
+    `profiler` (utils.profiler.Profiler) times the session's stages under
+    the JAX session's names; by default the disabled NULL, which reads no
+    clock and waits for nothing."""
 
     def __init__(self, cfg: EncoderConfig, *, device=None,
-                 kernels: bool = True, fetch_recon: bool = True):
+                 kernels: bool = True, fetch_recon: bool = True,
+                 profiler=None):
         if not isinstance(cfg, EncoderConfig):
             raise TypeError(
                 "HomerEncoder needs a homerhevc_tpu_torch.config."
@@ -113,6 +119,7 @@ class HomerEncoder:
                        else torch.device(device))
         self.kernels = kernels
         self.fetch_recon = fetch_recon
+        self.prof = profiler if profiler is not None else NULL
         self.ctu = c.ctu_size
         self.ctu_log2 = self.ctu.bit_length() - 1
         # intra codes at most 32x32 CUs: a 64-CTU IDR holds four 32-blocks
@@ -268,33 +275,38 @@ class HomerEncoder:
     def _encode(self, yp, up, vp, is_idr, qp):
         c = self.cfg
         size = self.ctu
-        self._cur_dev = tuple(self._upload(p) for p in (yp, up, vp))
+        prof = self.prof
+        with prof.probe("upload"):
+            self._cur_dev = tuple(self._upload(p) for p in (yp, up, vp))
         ydev, udev, vdev = self._cur_dev
         if is_idr:
             # the row-QP history does not survive an IDR
             self._prev_row_load = self._prev_row_bits = None
             tu_depth = self.params.max_tr_depth_intra
-            out = intra_torch.encode_frame_intra(
-                ydev, udev, vdev, B=size, qp=qp, sign_hiding=c.sign_hiding,
-                split_rdo=self.intra_split, rd_mode=int(c.rd_mode),
-                tu_depth=tu_depth)
-            wire_h = out["wire"].cpu().numpy()          # one compact fetch
-            (cnt_i, mode_u8, depth_u8, part_u8, trd_u8, idx_i,
-             vals_i) = intra_torch.unpack_intra_wire(wire_h, self.ph, self.pw)
-            cap_i = intra_torch.intra_wire_cap(self.ph, self.pw)
-            if cnt_i <= cap_i:
-                lev = native_backend.scatter_levels_native(
-                    idx_i, vals_i, cnt_i, self.ph, self.pw)[:3]
-            else:                                  # capacity overflow
-                self.chunk_overflows += 1
-                lev = tuple(out[k].cpu().numpy()
-                            for k in ("lev_y", "lev_u", "lev_v"))
-            # a 64-CTU's unit depths count from its 32-blocks
-            maps = native_backend.maps_from_intra_units(
-                mode_u8, depth_u8, *lev, depth_offset=int(self.ctu64),
-                part_units=(part_u8.astype(bool) if self.intra_split
-                            else None),
-                tr_depth_units=(trd_u8 if tu_depth else None))
+            with prof.probe("intra.device"):
+                out = intra_torch.encode_frame_intra(
+                    ydev, udev, vdev, B=size, qp=qp,
+                    sign_hiding=c.sign_hiding, split_rdo=self.intra_split,
+                    rd_mode=int(c.rd_mode), tu_depth=tu_depth)
+            with prof.probe("intra.fetch+maps"):
+                wire_h = out["wire"].cpu().numpy()      # one compact fetch
+                (cnt_i, mode_u8, depth_u8, part_u8, trd_u8, idx_i,
+                 vals_i) = intra_torch.unpack_intra_wire(wire_h, self.ph,
+                                                         self.pw)
+                cap_i = intra_torch.intra_wire_cap(self.ph, self.pw)
+                if cnt_i <= cap_i:
+                    lev = native_backend.scatter_levels_native(
+                        idx_i, vals_i, cnt_i, self.ph, self.pw)[:3]
+                else:                              # capacity overflow
+                    self.chunk_overflows += 1
+                    lev = tuple(out[k].cpu().numpy()
+                                for k in ("lev_y", "lev_u", "lev_v"))
+                # a 64-CTU's unit depths count from its 32-blocks
+                maps = native_backend.maps_from_intra_units(
+                    mode_u8, depth_u8, *lev, depth_offset=int(self.ctu64),
+                    part_units=(part_u8.astype(bool) if self.intra_split
+                                else None),
+                    tr_depth_units=(trd_u8 if tu_depth else None))
             if c.deblocking:
                 self._ref = p_torch.deblock_intra_device(
                     out["recon_y"], out["recon_u"], out["recon_v"], qp=qp,
@@ -302,58 +314,72 @@ class HomerEncoder:
                     trd_units=(out["trd_units"] if tu_depth else None))
             else:
                 self._ref = (out["recon_y"], out["recon_u"], out["recon_v"])
-            sao_info = self._maybe_sao(qp)
-            au = assemble.assemble_idr_au_from_maps(
-                self.params, maps, slice_qp=qp, include_parameter_sets=True,
-                sao_info=sao_info)
+            with prof.probe("sao"):
+                sao_info = self._maybe_sao(qp)
+            with prof.probe("entropy"):
+                au = assemble.assemble_idr_au_from_maps(
+                    self.params, maps, slice_qp=qp,
+                    include_parameter_sets=True, sao_info=sao_info)
         elif self.inter_split:
             au = self._encode_p_tree(qp)
             if au is None:               # scene cut: re-encode as IDR
                 return self._encode(yp, up, vp, True, self._scene_cut(qp))
         else:
-            out = p_torch.p_frame_device(
-                ydev, udev, vdev, *self._ref, B=size, qp=qp,
-                search=c.me_search_range,
-                me_precision=int(c.motion_estimation_precision),
-                deblock=c.deblocking, sign_hiding=c.sign_hiding,
-                kernels=self.kernels)
-            maps, sad = self._fixed_p_maps(out["wire"], size)
+            with prof.probe("p.device"):
+                out = p_torch.p_frame_device(
+                    ydev, udev, vdev, *self._ref, B=size, qp=qp,
+                    search=c.me_search_range,
+                    me_precision=int(c.motion_estimation_precision),
+                    deblock=c.deblocking, sign_hiding=c.sign_hiding,
+                    kernels=self.kernels)
+            mvs, sad, lev = self._fixed_p_fetch(out["wire"], size, "p")
             if c.reinit_gop_on_scene_change:
                 ms = float(sad.astype(np.int64).mean())
                 if ms / (size * size) > SCENE_SAD_PER_PIXEL:
                     return self._encode(yp, up, vp, True,
                                         self._scene_cut(qp))
+            maps = self._fixed_p_maps(mvs, lev, size, "p")
             key = "ref" if c.deblocking else "recon"
             self._ref = (out[key + "_y"], out[key + "_u"], out[key + "_v"])
-            sao_info = self._maybe_sao(qp, slice_p=True)
-            au = assemble.assemble_p_au_from_maps(
-                self.params, maps, poc=self.poc - self.last_idr,
-                slice_qp=qp, sao_info=sao_info)
-        recon = (tuple(p.cpu().numpy() for p in self._ref)
-                 if self.fetch_recon else None)
+            with prof.probe("sao"):
+                sao_info = self._maybe_sao(qp, slice_p=True)
+            with prof.probe("entropy"):
+                au = assemble.assemble_p_au_from_maps(
+                    self.params, maps, poc=self.poc - self.last_idr,
+                    slice_qp=qp, sao_info=sao_info)
+        recon = None
+        if self.fetch_recon:
+            with prof.probe("ref.fetch"):
+                recon = tuple(p.cpu().numpy() for p in self._ref)
         return au, recon
 
-    def _fixed_p_maps(self, wire, size: int):
-        """Host half of a fixed-CU P frame: one fetch of the device wire,
-        the merge/skip/AMVP decisions and the syntax maps. Returns (maps,
-        per-block best ME cost)."""
+    def _fixed_p_fetch(self, wire, size: int, stage: str):
+        """One fetch of a fixed-CU P frame's device wire (probe
+        `stage`.fetch). Returns the block MVs, each block's best ME cost and
+        the luma, Cb and Cr levels per block."""
         nby, nbx = self.ph // size, self.pw // size
         B2 = size // 2
         ny = nby * nbx * size * size
         nc = nby * nbx * B2 * B2
-        wire = wire.cpu().numpy()                       # one fetch
-        meta = np.ascontiguousarray(wire[ny + 2 * nc:]).view(np.int32)
-        mvs = meta[:nby * nbx * 2].reshape(nby, nbx, 2)
-        sad = meta[nby * nbx * 2:].reshape(nby, nbx)
-        lev_y = wire[:ny].reshape(nby, nbx, size, size)
-        lev_u = wire[ny:ny + nc].reshape(nby, nbx, B2, B2)
-        lev_v = wire[ny + nc:ny + 2 * nc].reshape(nby, nbx, B2, B2)
-        has_resid = (np.any(lev_y, axis=(-1, -2))
-                     | np.any(lev_u, axis=(-1, -2))
-                     | np.any(lev_v, axis=(-1, -2)))
-        dec, _ = derive_block_decisions_fast(mvs, has_resid, size, 5)
-        return native_backend.maps_from_p_arrays(mvs, dec, lev_y, lev_u,
-                                                 lev_v, size), sad
+        with self.prof.probe(stage + ".fetch"):
+            wire = wire.cpu().numpy()                   # one fetch
+            meta = np.ascontiguousarray(wire[ny + 2 * nc:]).view(np.int32)
+            mvs = meta[:nby * nbx * 2].reshape(nby, nbx, 2)
+            sad = meta[nby * nbx * 2:].reshape(nby, nbx)
+        lev = (wire[:ny].reshape(nby, nbx, size, size),
+               wire[ny:ny + nc].reshape(nby, nbx, B2, B2),
+               wire[ny + nc:ny + 2 * nc].reshape(nby, nbx, B2, B2))
+        return mvs, sad, lev
+
+    def _fixed_p_maps(self, mvs, lev, size: int, stage: str):
+        """Host half of a fixed-CU P frame after its fetch: the merge/skip/
+        AMVP decisions and the syntax maps (probe `stage`.decisions+maps)."""
+        with self.prof.probe(stage + ".decisions+maps"):
+            has_resid = np.any(lev[0], axis=(-1, -2))
+            for lv in lev[1:]:
+                has_resid |= np.any(lv, axis=(-1, -2))
+            dec, _ = derive_block_decisions_fast(mvs, has_resid, size, 5)
+            return native_backend.maps_from_p_arrays(mvs, dec, *lev, size)
 
     def _tree_kwargs(self) -> dict:
         """Static settings of the tree P stage, per frame and per chunk."""
@@ -409,22 +435,26 @@ class HomerEncoder:
         IDR)."""
         c = self.cfg
         ctu = self.ctu
+        prof = self.prof
         qp_rows = self._plan_rows(qp)
-        out = p_torch.p_frame_tree_device(
-            *self._cur_dev, *self._ref, qp=qp, deblock=c.deblocking,
-            qp_rows=(None if qp_rows is None
-                     else self._upload(qp_rows.astype(np.int32))),
-            **self._tree_kwargs())
+        with prof.probe("p.device"):
+            out = p_torch.p_frame_tree_device(
+                *self._cur_dev, *self._ref, qp=qp, deblock=c.deblocking,
+                qp_rows=(None if qp_rows is None
+                         else self._upload(qp_rows.astype(np.int32))),
+                **self._tree_kwargs())
         uh, uw = self.ph // 4, self.pw // 4
         nu = uh * uw
         npix = self.ph * self.pw
-        wire = out["wire"].cpu().numpy()                # one fetch
-        meta = np.ascontiguousarray(wire[npix + npix // 2:]).view(np.int32)
-        depth_u, mv_u, nz_u, trd_u, intra_u = (
-            m.reshape(shape) for m, shape in zip(
-                np.split(meta[:6 * nu], np.cumsum([nu, 2 * nu, nu, nu])),
-                ((uh, uw), (uh, uw, 2), (uh, uw), (uh, uw), (uh, uw))))
-        sad = meta[6 * nu:].reshape(self.ph // ctu, self.pw // ctu)
+        with prof.probe("p.fetch"):
+            wire = out["wire"].cpu().numpy()            # one fetch
+            meta = np.ascontiguousarray(
+                wire[npix + npix // 2:]).view(np.int32)
+            depth_u, mv_u, nz_u, trd_u, intra_u = (
+                m.reshape(shape) for m, shape in zip(
+                    np.split(meta[:6 * nu], np.cumsum([nu, 2 * nu, nu, nu])),
+                    ((uh, uw), (uh, uw, 2), (uh, uw), (uh, uw), (uh, uw))))
+            sad = meta[6 * nu:].reshape(self.ph // ctu, self.pw // ctu)
         if c.reinit_gop_on_scene_change:
             ms = float(sad.astype(np.int64).mean())
             if ms / (ctu * ctu) > SCENE_SAD_PER_PIXEL:
@@ -434,15 +464,18 @@ class HomerEncoder:
                                                    self.pw // 2),
                wire[npix + npix // 4:npix + npix // 2].reshape(
                    self.ph // 2, self.pw // 2))
-        maps = self._tree_maps(depth_u, mv_u, nz_u.astype(bool), trd_u,
-                               intra_u, lev, qp_rows)
+        with prof.probe("p.decisions+maps"):
+            maps = self._tree_maps(depth_u, mv_u, nz_u.astype(bool), trd_u,
+                                   intra_u, lev, qp_rows)
         key = "ref" if c.deblocking else "recon"
         self._ref = (out[key + "_y"], out[key + "_u"], out[key + "_v"])
-        sao_info = self._maybe_sao(qp, slice_p=True)
-        au = assemble.assemble_p_au_from_maps(
-            self.params, maps, poc=self.poc - self.last_idr, slice_qp=qp,
-            sao_info=sao_info)
-        self._row_bits_from(au, qp_rows)
+        with prof.probe("sao"):
+            sao_info = self._maybe_sao(qp, slice_p=True)
+        with prof.probe("entropy"):
+            au = assemble.assemble_p_au_from_maps(
+                self.params, maps, poc=self.poc - self.last_idr,
+                slice_qp=qp, sao_info=sao_info)
+            self._row_bits_from(au, qp_rows)
         return au
 
     def _maybe_sao(self, qp, slice_p=False):
@@ -520,17 +553,24 @@ class HomerEncoder:
         loop filter on its reconstruction, which nothing references."""
         c = self.cfg
         size = self.ctu
+        prof = self.prof
         d, frame = pend
         qp = int(np.clip(self._rc.frame_qp(False) if self._rc else c.qp,
                          0, 51))
-        cur = tuple(self._upload(p) for p in self._pad_frame(*frame))
-        out = p_torch.p_frame_device(
-            *cur, *ref, B=size, qp=qp, search=c.me_search_range,
-            me_precision=int(c.motion_estimation_precision), deblock=False,
-            sign_hiding=c.sign_hiding, kernels=self.kernels)
-        maps, _ = self._fixed_p_maps(out["wire"], size)
-        au = assemble.assemble_p_au_from_maps(
-            self.params, maps, poc=d - self.last_idr, slice_qp=qp, rps_idx=2)
+        with prof.probe("p_expl.upload"):
+            cur = tuple(self._upload(p) for p in self._pad_frame(*frame))
+        with prof.probe("p_expl.device"):
+            out = p_torch.p_frame_device(
+                *cur, *ref, B=size, qp=qp, search=c.me_search_range,
+                me_precision=int(c.motion_estimation_precision),
+                deblock=False, sign_hiding=c.sign_hiding,
+                kernels=self.kernels)
+        mvs, _, lev = self._fixed_p_fetch(out["wire"], size, "p_expl")
+        maps = self._fixed_p_maps(mvs, lev, size, "p_expl")
+        with prof.probe("p_expl.entropy"):
+            au = assemble.assemble_p_au_from_maps(
+                self.params, maps, poc=d - self.last_idr, slice_qp=qp,
+                rps_idx=2)
         self.frame_bytes.append(len(au))
         if self._rc:
             self._rc.end_frame(len(au) * 8, False)
@@ -540,25 +580,33 @@ class HomerEncoder:
         """One B frame between its two anchors' decoded planes (a
         non-reference picture: its reconstruction is not kept)."""
         c = self.cfg
+        prof = self.prof
         d, frame = pend
         qp = int(np.clip(self._rc.frame_qp(False, is_b=True) if self._rc
                          else c.qp + 2, 0, 51))
-        cur = tuple(self._upload(p) for p in self._pad_frame(*frame))
-        out = b_torch.b_frame_device(
-            *cur, *ref0, *ref1, B=self.ctu, qp=qp, search=c.me_search_range,
-            me_precision=int(c.motion_estimation_precision),
-            sign_hiding=c.sign_hiding, vis=(c.height, c.width),
-            kernels=self.kernels)
-        w = b_torch.unpack_b_wire(out["wire"].cpu().numpy(), self.ph,
-                                  self.pw, self.ctu)    # one fetch
-        plan = b_golden.build_b_plans(
-            w["idc"], w["mv0"], w["mv1"],
-            *(w[k].astype(np.int32) for k in ("lev_y", "lev_u", "lev_v")),
-            (None, None, None), size=self.ctu, poc=d - self.last_idr,
-            poc_refs=(d - 1 - self.last_idr, d + 1 - self.last_idr))
-        au = assemble.assemble_p_au(self.params, plan.ctu_plans,
-                                    poc=d - self.last_idr, slice_qp=qp,
-                                    slice_type=headers.SLICE_B, rps_idx=1)
+        with prof.probe("b.upload"):
+            cur = tuple(self._upload(p) for p in self._pad_frame(*frame))
+        with prof.probe("b.device"):
+            out = b_torch.b_frame_device(
+                *cur, *ref0, *ref1, B=self.ctu, qp=qp,
+                search=c.me_search_range,
+                me_precision=int(c.motion_estimation_precision),
+                sign_hiding=c.sign_hiding, vis=(c.height, c.width),
+                kernels=self.kernels)
+        with prof.probe("b.fetch"):
+            w = b_torch.unpack_b_wire(out["wire"].cpu().numpy(), self.ph,
+                                      self.pw, self.ctu)    # one fetch
+        with prof.probe("b.plans"):
+            plan = b_golden.build_b_plans(
+                w["idc"], w["mv0"], w["mv1"],
+                *(w[k].astype(np.int32) for k in ("lev_y", "lev_u", "lev_v")),
+                (None, None, None), size=self.ctu, poc=d - self.last_idr,
+                poc_refs=(d - 1 - self.last_idr, d + 1 - self.last_idr))
+        with prof.probe("b.entropy"):
+            au = assemble.assemble_p_au(self.params, plan.ctu_plans,
+                                        poc=d - self.last_idr, slice_qp=qp,
+                                        slice_type=headers.SLICE_B,
+                                        rps_idx=1)
         self.frame_bytes.append(len(au))
         if self._rc:
             self._rc.end_frame(len(au) * 8, False, is_b=True)
@@ -631,19 +679,21 @@ class HomerEncoder:
     def _dispatch_chunk(self, fr, idxs, qps):
         c = self.cfg
         padded = [self._pad_frame(*f) for f in fr]
-        ys, us, vs = (self._upload(np.stack([p[k] for p in padded]))
-                      for k in range(3))
-        qps_d = self._upload(np.asarray(qps, np.int32))
+        planes = [np.stack([p[k] for p in padded]) for k in range(3)]
+        with self.prof.probe("chunk.upload"):
+            ys, us, vs = (self._upload(p) for p in planes)
         # every frame of the chunk is planned from the same (stale) history
         row_plans = (np.stack([self._plan_rows(q) for q in qps])
                      if self._row_qp_on else None)
-        wires, denses, fy, fu, fv = p_chunk.p_chunk_device(
-            ys, us, vs, *self._ref, qps_d, deblock=c.deblocking,
-            sao=c.sample_adaptive_offset, cap=self._chunk_cap,
-            tree=self.inter_split,
-            qp_rows=(None if row_plans is None
-                     else self._upload(row_plans.astype(np.int32))),
-            **self._tree_kwargs())
+        with self.prof.probe("chunk.dispatch"):
+            wires, denses, fy, fu, fv = p_chunk.p_chunk_device(
+                ys, us, vs, *self._ref,
+                self._upload(np.asarray(qps, np.int32)),
+                deblock=c.deblocking, sao=c.sample_adaptive_offset,
+                cap=self._chunk_cap, tree=self.inter_split,
+                qp_rows=(None if row_plans is None
+                         else self._upload(row_plans.astype(np.int32))),
+                **self._tree_kwargs())
         self._ref = (fy, fu, fv)
         host, done = wires, None
         if self._copy_stream is not None:
@@ -665,10 +715,12 @@ class HomerEncoder:
         Returns None, or 'scene' after a scene-cut re-encode."""
         c = self.cfg
         ctu = self.ctu
+        prof = self.prof
         idxs, qps, host, done, denses, row_plans = pending
-        if done is not None:
-            done.synchronize()
-        wires_h = host.numpy()
+        with prof.probe("chunk.fetch"):
+            if done is not None:
+                done.synchronize()
+            wires_h = host.numpy()
         cap = self._chunk_cap
         uh, uw = self.ph // 4, self.pw // 4
         for row_i, (fi, qp) in enumerate(zip(idxs, qps)):
@@ -687,19 +739,25 @@ class HomerEncoder:
                                                    force_idr=(k == fi))
                     return "scene"
             cnt = int(w["cnt"][0])
-            if cnt <= cap and int(w["cnt2"][0]) <= self._chunk_cap2:
-                lev_y, lev_u, lev_v, nz = native_backend.scatter_levels_native(
-                    w["idx"], w["vals"], min(cnt, cap), self.ph, self.pw)
-            else:                                   # capacity overflow
-                self.chunk_overflows += 1
-                d = denses[row_i].cpu().numpy()
-                npix = self.ph * self.pw
-                lev_y = d[:npix].reshape(self.ph, self.pw).astype(np.int32)
-                lev_u = (d[npix:npix + npix // 4]
-                         .reshape(self.ph // 2, self.pw // 2).astype(np.int32))
-                lev_v = (d[npix + npix // 4:npix + npix // 2]
-                         .reshape(self.ph // 2, self.pw // 2).astype(np.int32))
-                nz = None
+            with prof.probe("chunk.scatter"):
+                if cnt <= cap and int(w["cnt2"][0]) <= self._chunk_cap2:
+                    lev_y, lev_u, lev_v, nz = (
+                        native_backend.scatter_levels_native(
+                            w["idx"], w["vals"], min(cnt, cap), self.ph,
+                            self.pw))
+                else:                               # capacity overflow
+                    self.chunk_overflows += 1
+                    d = denses[row_i].cpu().numpy()
+                    npix = self.ph * self.pw
+                    lev_y = (d[:npix].reshape(self.ph, self.pw)
+                             .astype(np.int32))
+                    lev_u = (d[npix:npix + npix // 4]
+                             .reshape(self.ph // 2, self.pw // 2)
+                             .astype(np.int32))
+                    lev_v = (d[npix + npix // 4:npix + npix // 2]
+                             .reshape(self.ph // 2, self.pw // 2)
+                             .astype(np.int32))
+                    nz = None
             g = w["gran"]
             depth_u = np.repeat(np.repeat(w["depth16"], g, 0), g, 1)
             trd_u = np.repeat(np.repeat(w["trd16"], g, 0), g, 1)
@@ -710,8 +768,9 @@ class HomerEncoder:
                       | np.any(lev_u.reshape(uh, 2, uw, 2) != 0, axis=(1, 3))
                       | np.any(lev_v.reshape(uh, 2, uw, 2) != 0, axis=(1, 3)))
             qp_rows = None if row_plans is None else row_plans[row_i]
-            maps = self._tree_maps(depth_u, mv_u, nz, trd_u, intra_u,
-                                   (lev_y, lev_u, lev_v), qp_rows)
+            with prof.probe("chunk.decisions"):
+                maps = self._tree_maps(depth_u, mv_u, nz, trd_u, intra_u,
+                                       (lev_y, lev_u, lev_v), qp_rows)
             sao_info = None
             if c.sample_adaptive_offset:
                 pp = w["sao_pp"]
@@ -720,9 +779,10 @@ class HomerEncoder:
                 cr, _, _ = p_chunk.unpk_params(pp[2])
                 sao_info = dict(luma=luma, cb=cb, cr=cr, merge_left=ml,
                                 merge_up=mu, sao_luma=True, sao_chroma=True)
-            au = assemble.assemble_p_au_from_maps(
-                self.params, maps, poc=self.poc - self.last_idr,
-                slice_qp=qp, sao_info=sao_info)
+            with prof.probe("chunk.entropy"):
+                au = assemble.assemble_p_au_from_maps(
+                    self.params, maps, poc=self.poc - self.last_idr,
+                    slice_qp=qp, sao_info=sao_info)
             aus[fi] = au
             self.last_qp = qp
             self.poc += 1
@@ -742,3 +802,11 @@ class HomerEncoder:
 
     def __exit__(self, *exc):
         self.close()
+
+
+def write_annex_b(path: str, aus: list[bytes]) -> None:
+    """Role of HOMER_enc_write_annex_b_output (hmr_encoder_lib.c:2196):
+    AUs already carry start codes; this just concatenates to a file."""
+    with open(path, "wb") as f:
+        for au in aus:
+            f.write(au)

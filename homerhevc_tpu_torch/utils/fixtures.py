@@ -38,6 +38,9 @@ CBR runs of the CTU-64 quadtree path, which the JAX package cannot code:
 they are held to libde265 alone.
 INTRA_CASES are single frames (`intra_frame`) through the split-RDO IDR
 stage alone; the fixture holds a SHA-256 per output array for them.
+CLI_RUNS go through the JAX package's CLI (homer_app.py) and the port's
+(app.py) on the same .yuv file and flags; the fixture's "cli" entry holds
+what cli_record reads off the JAX CLI's outputs.
 """
 
 from __future__ import annotations
@@ -204,6 +207,42 @@ DECODER_RUNS = {
                                        me_search_range=64)),
 }
 
+# The CLI's reference runs: homer_app.py (the JAX package's CLI) and
+# homer_app_torch.py (the port's) on the same .yuv file with the same flags.
+# The clip is synth_clip(width, height, frames, seed), the frames from `cut`
+# on negatives (a scene cut); `args` are the flags besides -i, -o, -o-raw
+# (given where `write_raw`), -widthxheight and -n_frames. The fixture's "cli"
+# entry holds, per run, what cli_record reads off the outputs, and whether
+# libde265 decodes the JAX CLI's .265 to its own -o-raw file.
+CLI_RUNS = {
+    # IPPP FASTEST at a size that needs padding, SAO and sign hiding on
+    "cli_fastest_small": dict(
+        width=120, height=88, frames=5, seed=3, write_raw=True,
+        args=("-performance_mode", "3", "-sao", "1", "-sign_hiding", "1",
+              "-metrics", "-profiling")),
+    # FAST under CBR at 8 kbps, frame by frame: row QPs that differ within
+    # a frame, and a scene cut at frame 5
+    "cli_cbr_fast_small": dict(
+        width=120, height=88, frames=8, seed=3, cut=5, write_raw=True,
+        args=("-performance_mode", "1", "-bitrate_mode", "1", "-bitrate",
+              "8", "-metrics")),
+    # streaming IBP through push_frame / flush (the explicit P at flush)
+    "cli_ibp_small": dict(
+        width=128, height=96, frames=6, seed=3,
+        args=("-gop_size", "2", "-performance_mode", "3", "-profiling")),
+    # BASELINE.md configuration 1 at a small size: all-intra, CTU 64, rd FAST
+    "cli_allintra64_small": dict(
+        width=192, height=128, frames=2, seed=3, write_raw=True,
+        args=("-gop_size", "0", "-cu_size", "64", "-rd", "2", "-sao", "0")),
+    # BASELINE.md configuration 4 at the reference's default operating point
+    # (1250 kbps, rd FAST, SAO and sign hiding), in FASTEST, with a scene cut
+    "cli_cbr_scene_fastest_1080p": dict(
+        width=1920, height=1080, frames=10, seed=0, cut=5, write_raw=True,
+        args=("-performance_mode", "3", "-cu_size", "32", "-search_range",
+              "16", "-bitrate_mode", "1", "-bitrate", "1250", "-rd", "2",
+              "-sao", "1", "-sign_hiding", "1", "-metrics", "-profiling")),
+}
+
 # single frames through encode_frame_intra(split_rdo=True): (width, height,
 # tu_depth), the frame is intra_frame(width, height, seed=5)
 INTRA_CASES = {
@@ -295,10 +334,10 @@ def run_config(name: str) -> EncoderConfig:
 
 
 def clip(name: str) -> list:
-    """The frames [(y, u, v), ...] of one of RUNS or DECODER_RUNS, made
-    from its seed; in a run with `cut` = k the frames from k on are
-    negatives (255 - sample), a scene cut at frame k."""
-    r = run_spec(name)
+    """The frames [(y, u, v), ...] of one of RUNS, DECODER_RUNS or
+    CLI_RUNS, made from its seed; in a run with `cut` = k the frames from k
+    on are negatives (255 - sample), a scene cut at frame k."""
+    r = CLI_RUNS[name] if name in CLI_RUNS else run_spec(name)
     frames = list(synth_clip(r["width"], r["height"], r["frames"],
                              seed=r["seed"]))
     k = r.get("cut", len(frames))
@@ -372,3 +411,75 @@ def decode_check(aus, recon_y):
         return None
     dec = de265.decode_annexb(b"".join(aus))
     return len(dec) == len(aus) and np.array_equal(dec[-1][0], recon_y)
+
+
+def write_cli_input(name: str, path: str) -> None:
+    """The clip of one of CLI_RUNS as a planar YUV420 file."""
+    with open(path, "wb") as f:
+        for frame in clip(name):
+            for p in frame:
+                f.write(np.ascontiguousarray(p).tobytes())
+
+
+def cli_argv(name: str, yuv: str, out: str, raw: str) -> list:
+    """The command line of one of CLI_RUNS (either package's CLI)."""
+    r = CLI_RUNS[name]
+    return (["-i", yuv, "-o", out] + (["-o-raw", raw] if r.get("write_raw") else [])
+            + ["-widthxheight", f"{r['width']}x{r['height']}",
+               "-n_frames", str(r["frames"]), *r["args"]])
+
+
+def _file_digest(path: str):
+    """SHA-256 and length of a file, or None where it was not written."""
+    try:
+        with open(path, "rb") as f:
+            data = f.read()
+    except FileNotFoundError:
+        return None
+    return {"sha256": hashlib.sha256(data).hexdigest(), "len": len(data)}
+
+
+def cli_record(text: str, out: str, raw: str) -> dict:
+    """What a CLI run printed and wrote, without its timings: the .265's
+    and the -o-raw file's digests, the per-frame lines, the frame count and
+    what follows "fps" on the last line, and the profiler's stage names."""
+    lines = text.splitlines()
+    final = next(ln for ln in lines if " frames in " in ln)
+    stages = []
+    if "profiler: stage breakdown" in lines:
+        for ln in lines[lines.index("profiler: stage breakdown") + 1:]:
+            name = ln.split()[0]
+            if name == "total":
+                break
+            stages.append(name)
+    return {"stream": _file_digest(out), "raw": _file_digest(raw),
+            "lines": [ln for ln in lines if ln.startswith("POC:")],
+            "frames": int(final.split()[0]),
+            "tail": final.split(" fps", 1)[1], "stages": sorted(stages)}
+
+
+def cli_decode_check(out: str, raw: str, width: int, height: int):
+    """Decode a CLI's .265 in libde265 and compare every picture with the
+    -o-raw file: {"match": bool, "decoded": n, "first_diff": [frame,
+    plane] or None}, or None where libde265 does not load."""
+    if not de265.available():
+        return None
+    with open(out, "rb") as f:
+        dec = de265.decode_annexb(f.read())
+    with open(raw, "rb") as f:
+        data = np.frombuffer(f.read(), np.uint8)
+    shapes = ((height, width), (height // 2, width // 2),
+              (height // 2, width // 2))
+    fsize = width * height * 3 // 2
+    first = None
+    for k in range(len(data) // fsize):
+        o = k * fsize
+        for pi, (h, w) in enumerate(shapes):
+            want = data[o:o + h * w].reshape(h, w)
+            o += h * w
+            if first is None and (k >= len(dec)
+                                  or not np.array_equal(dec[k][pi], want)):
+                first = [k, pi]
+    n = len(data) // fsize
+    return {"match": first is None and len(dec) == n, "decoded": len(dec),
+            "first_diff": first}

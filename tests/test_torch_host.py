@@ -23,6 +23,10 @@ originals, from seeded numpy inputs (numpy only plus the two packages).
                          the JAX package's build_p_plans + assemble_p_au
   pipeline.b_golden      build_b_plans' plans give the same B-slice AU
                          bytes in both packages
+  utils.yuv, utils.psnr, the same source, function for function, and the
+  utils.profiler,        same results: YUV frames written and read back,
+  api.write_annex_b      edge padding, PSNR (int64 differences, 100.0 at
+                         MSE 0), the profiler's report
 
 Tolerance: exact (integers and bytes).
 """
@@ -543,7 +547,8 @@ def test_explicit_p_host_half_matches_build_p_plans(shape, wpp):
         wpp=wpp, sign_hiding=True,
         performance_mode=tconfig.PerformanceMode.FASTEST_COMPUTATION)
     enc = tapi.HomerEncoder(cfg, device="cpu")
-    maps, got_sad = enc._fixed_p_maps(wire, 32)
+    got_mvs, got_sad, got_lev = enc._fixed_p_fetch(wire, 32, "p_expl")
+    maps = enc._fixed_p_maps(got_mvs, got_lev, 32, "p_expl")
     np.testing.assert_array_equal(got_sad, sad)
     got = tassemble.assemble_p_au_from_maps(
         _ibp_params(theaders, 32 * nbx, 32 * nby, wpp), maps, poc=3,
@@ -579,3 +584,91 @@ def test_build_b_plans_b_slice_bytes_equal(wpp):
             _ibp_params(headers, 32 * nbx, 32 * nby, wpp), plan.ctu_plans,
             poc=1, slice_qp=32, slice_type=headers.SLICE_B, rps_idx=1))
     assert len(aus[0]) > 50 and aus[1] == aus[0]
+
+
+# ---------------------------------------------------------------------------
+# utils.yuv, utils.psnr, utils.profiler, api.write_annex_b
+# ---------------------------------------------------------------------------
+
+COPIED_FUNCTIONS = [
+    ("utils.yuv", "frame_size_bytes"), ("utils.yuv", "read_yuv_frame"),
+    ("utils.yuv", "write_yuv_frame"), ("utils.yuv", "pad_to_ctu"),
+    ("utils.psnr", "psnr"), ("utils.psnr", "yuv_psnr"),
+    ("utils.profiler", "Profiler"), ("api", "write_annex_b")]
+
+
+@pytest.mark.parametrize("module,name", COPIED_FUNCTIONS)
+def test_session_utils_are_copies(module, name):
+    import importlib
+    import inspect
+    want = getattr(importlib.import_module("homerhevc_tpu." + module), name)
+    got = getattr(importlib.import_module("homerhevc_tpu_torch." + module),
+                  name)
+    assert got is not want
+    assert inspect.getsource(got) == inspect.getsource(want)
+
+
+def test_yuv_io_equal():
+    import io
+
+    from homerhevc_tpu.utils import yuv as jyuv
+    from homerhevc_tpu_torch.utils import yuv as tyuv
+    rng = np.random.default_rng(11)
+    frames = [tuple(rng.integers(0, 256, s, dtype=np.uint8)
+                    for s in ((22, 30), (11, 15), (11, 15))) for _ in range(3)]
+    bufs = []
+    for mod in (jyuv, tyuv):
+        f = io.BytesIO()
+        for fr in frames:
+            mod.write_yuv_frame(f, *fr)
+        bufs.append(f.getvalue())
+    assert bufs[0] == bufs[1]
+    assert len(bufs[0]) == 3 * tyuv.frame_size_bytes(30, 22)
+    f = io.BytesIO(bufs[1][:-7])                    # the last frame cut short
+    for fr in frames[:2]:
+        for p, q in zip(fr, tyuv.read_yuv_frame(f, 30, 22)):
+            np.testing.assert_array_equal(q, p)
+    assert tyuv.read_yuv_frame(f, 30, 22) is None
+    for h, w in ((22, 30), (32, 32), (24, 40)):
+        np.testing.assert_array_equal(tyuv.pad_to_ctu(frames[0][0], h, w),
+                                      jyuv.pad_to_ctu(frames[0][0], h, w))
+
+
+def test_psnr_equal():
+    from homerhevc_tpu.utils import psnr as jpsnr
+    from homerhevc_tpu_torch.utils import psnr as tpsnr
+    rng = np.random.default_rng(12)
+    a = rng.integers(0, 256, (16, 24), dtype=np.uint8)
+    b = np.clip(a.astype(np.int16) + rng.integers(-9, 10, a.shape), 0,
+                255).astype(np.uint8)
+    # uint8 wrap-around would corrupt the error without int64 differences
+    c = np.where(a > 128, 0, 255).astype(np.uint8)
+    for ref, rec in ((a, b), (a, c), (a, a)):
+        assert tpsnr.psnr(ref, rec) == jpsnr.psnr(ref, rec)
+    assert tpsnr.psnr(a, a) == 100.0
+    assert tpsnr.psnr(a, c) < 10.0
+    assert tpsnr.yuv_psnr((a, b, c), (b, b, a)) == jpsnr.yuv_psnr((a, b, c),
+                                                                  (b, b, a))
+
+
+def test_profiler_report_equal():
+    from homerhevc_tpu.utils import profiler as jprof
+    from homerhevc_tpu_torch.utils import profiler as tprof
+    reports = []
+    for mod in (jprof, tprof):
+        assert not mod.NULL.enabled
+        with mod.NULL.probe("x"):
+            pass
+        assert not mod.NULL.acc and mod.Profiler().report() == \
+            "profiler: no samples"
+        p = mod.Profiler()
+        for name, t in (("p.device", 0.25), ("entropy", 0.0125),
+                        ("p.device", 0.5), ("sao", 0.0)):
+            p.acc[name] += t
+            p.count[name] += 1
+        with p.probe("upload"):
+            pass
+        p.acc["upload"] = 0.001
+        reports.append(p.report())
+    assert reports[0] == reports[1]
+    assert reports[1].splitlines()[1].split()[:2] == ["p.device", "750.0"]

@@ -1,5 +1,6 @@
-"""The torch port imports neither jax nor anything of the JAX package
-(homerhevc_tpu), and chip_smoke.py refuses to run without a GPU or outside
+"""The torch port, its CLI launcher homer_app_torch.py and chip_smoke.py
+import neither jax nor anything of the JAX package (homerhevc_tpu), and
+chip_smoke.py refuses to run without a GPU or outside
 the repository (no result line, non-zero exit).
 
 The import check runs in a fresh interpreter so that this process's own
@@ -50,9 +51,16 @@ PORT_MODULES = [
     "homerhevc_tpu_torch.pipeline.assemble",
     "homerhevc_tpu_torch.utils.synth",
     "homerhevc_tpu_torch.utils.fixtures",
+    "homerhevc_tpu_torch.utils.yuv",
+    "homerhevc_tpu_torch.utils.psnr",
+    "homerhevc_tpu_torch.utils.profiler",
+    "homerhevc_tpu_torch.app",
     "homerhevc_tpu_torch.validate.de265",
     "chip_smoke",
+    "homer_app_torch",
 ]
+# the scripts at the root of the repository that run the port
+SCRIPTS = ("chip_smoke", "homer_app_torch")
 
 
 def _python(*argv, cwd: str = ROOT):
@@ -64,12 +72,12 @@ def _python(*argv, cwd: str = ROOT):
 def _port_sources():
     files = glob.glob(os.path.join(ROOT, "homerhevc_tpu_torch", "**", "*.py"),
                       recursive=True)
-    return sorted(files) + [os.path.join(ROOT, "chip_smoke.py")]
+    return sorted(files) + [os.path.join(ROOT, s + ".py") for s in SCRIPTS]
 
 
 def test_port_module_list_is_complete():
-    listed = {m for m in PORT_MODULES if m != "chip_smoke"}
-    for path in _port_sources()[:-1]:
+    listed = {m for m in PORT_MODULES if m not in SCRIPTS}
+    for path in _port_sources()[:-len(SCRIPTS)]:
         rel = os.path.relpath(path, ROOT)[:-3].replace(os.sep, ".")
         if rel.endswith(".__init__"):
             rel = rel[:-len(".__init__")]

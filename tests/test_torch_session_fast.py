@@ -20,6 +20,7 @@ for byte.
     (every rd_mode, and B frames at cu_size 32, are admitted).
 """
 
+import contextlib
 import dataclasses
 import functools
 import hashlib
@@ -101,14 +102,32 @@ def test_fast_small_decodes():
     _assert_decodes("fast_small")
 
 
+@contextlib.contextmanager
+def _no_persistent_jax_cache():
+    """JAX's persistent compilation cache switched off, then as it was: a
+    test worker died of a segmentation fault inside its write of the
+    reference's split-RDO IDR executable."""
+    import jax
+    from jax.experimental.compilation_cache import compilation_cache
+    was = jax.config.jax_enable_compilation_cache
+    jax.config.update("jax_enable_compilation_cache", False)
+    compilation_cache.reset_cache()     # the setting is read once per reset
+    try:
+        yield
+    finally:
+        jax.config.update("jax_enable_compilation_cache", was)
+        compilation_cache.reset_cache()
+
+
 def test_fast_matches_live_jax():
     # IDR + one chunk of 3: one compile of the reference's IDR stage and one
     # of its quadtree chunk (minutes on a CPU); AUs do not depend on how a
     # clip is cut into chunks, so these are the fixture's first four
     tools = _tools()
     r = fx.RUNS["fast_small"]
-    want = tools.jax_encode(fx.run_kwargs("fast_small"),
-                            fx.clip("fast_small")[:4], r["chunk"])
+    with _no_persistent_jax_cache():
+        want = tools.jax_encode(fx.run_kwargs("fast_small"),
+                                fx.clip("fast_small")[:4], r["chunk"])
     assert fx.au_digest(want) == _fixture()["fast_small"]["aus"][:4]
     got = _port_run("fast_small")[0][:4]
     for k, (a, b) in enumerate(zip(want, got)):

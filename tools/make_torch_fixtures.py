@@ -22,6 +22,10 @@ compiles for about three minutes at CTU 32 and forty at CTU 64). `--out`
 reads and writes FILE instead of the fixture, so independent runs can go in
 separate processes; `--merge` copies the runs of such files into the
 fixture. A run marked "push" in RUNS goes through push_frame and flush.
+A run of CLI_RUNS goes through the JAX package's CLI (homer_app.main) on
+the clip written to a .yuv file; its entry under "cli" holds the digests of
+the .265 and -o-raw files, the printed lines without timings, and the
+libde265 check of the .265 against the -o-raw file.
 """
 
 from __future__ import annotations
@@ -92,19 +96,55 @@ def jax_intra_case(name: str) -> dict:
     return {k: array_digest(out[k]) for k in INTRA_KEYS}
 
 
+def jax_cli(name: str) -> dict:
+    """The JAX package's CLI (homer_app.main, in this process, its standard
+    output captured) on one of the port's CLI_RUNS: what cli_record reads
+    off its outputs, and the libde265 check of its .265 against its -o-raw
+    file."""
+    import contextlib
+    import io
+    import tempfile
+    import time
+
+    import homer_app
+    from homerhevc_tpu_torch.utils import fixtures as fx
+
+    r = fx.CLI_RUNS[name]
+    with tempfile.TemporaryDirectory() as d:
+        yuv, out, raw = (os.path.join(d, f) for f in ("in.yuv", "out.265",
+                                                      "rec.yuv"))
+        fx.write_cli_input(name, yuv)
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            homer_app.main(fx.cli_argv(name, yuv, out, raw))
+        secs = time.perf_counter() - t
+        text = buf.getvalue()
+        print(text, end="")
+        print(f"{name}: the JAX CLI took {secs:.1f} s on this CPU")
+        rec = dict(r, args=list(r["args"]), **fx.cli_record(text, out, raw))
+        rec["decode"] = (fx.cli_decode_check(out, raw, r["width"],
+                                             r["height"])
+                         if r.get("write_raw") else None)
+    return rec
+
+
 def _write(path: str, out: dict) -> None:
-    from homerhevc_tpu_torch.utils.fixtures import INTRA_CASES, RUNS
+    from homerhevc_tpu_torch.utils.fixtures import CLI_RUNS, INTRA_CASES, RUNS
     intra = out.pop("intra_split", {})
+    cli = out.pop("cli", {})
     out = {name: out[name] for name in RUNS if name in out}
     out["intra_split"] = {n: intra[n] for n in INTRA_CASES if n in intra}
+    out["cli"] = {n: cli[n] for n in CLI_RUNS if n in cli}
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
         json.dump(out, f, indent=1)
         f.write("\n")
     print(f"wrote {path}: " + ", ".join(
         f"{k} {len(v['aus'])} AUs" for k, v in out.items()
-        if k != "intra_split")
-        + f", intra_split {len(out['intra_split'])} cases")
+        if k not in ("intra_split", "cli"))
+        + f", intra_split {len(out['intra_split'])} cases, cli "
+        f"{len(out['cli'])} runs")
 
 
 def merge(paths) -> int:
@@ -115,38 +155,43 @@ def merge(paths) -> int:
         with open(p) as f:
             part = json.load(f)
         out.setdefault("intra_split", {}).update(part.pop("intra_split", {}))
+        out.setdefault("cli", {}).update(part.pop("cli", {}))
         out.update(part)
     _write(OUT, out)
     return 0
 
 
 def main(argv) -> int:
-    from homerhevc_tpu_torch.utils.fixtures import (INTRA_CASES, RUNS,
-                                                    au_digest)
+    from homerhevc_tpu_torch.utils.fixtures import (CLI_RUNS, INTRA_CASES,
+                                                    RUNS, au_digest)
     if argv[:1] == ["--merge"]:
         return merge(argv[1:])
     path = OUT
     if argv[:1] == ["--out"]:
         path, argv = argv[1], argv[2:]
-    names = argv or list(RUNS) + list(INTRA_CASES)
-    unknown = [n for n in names if n not in RUNS and n not in INTRA_CASES]
+    known = list(RUNS) + list(INTRA_CASES) + list(CLI_RUNS)
+    names = argv or known
+    unknown = [n for n in names if n not in known]
     if unknown:
-        print(f"unknown runs {unknown}; known: "
-              f"{list(RUNS) + list(INTRA_CASES)}", file=sys.stderr)
+        print(f"unknown runs {unknown}; known: {known}", file=sys.stderr)
         return 2
     out = {}
     if argv and os.path.exists(path):
         with open(path) as f:
             out = json.load(f)
     intra = out.pop("intra_split", {})
+    cli = out.pop("cli", {})
     for name in names:
         if name in RUNS:
             out[name] = dict(RUNS[name], aus=au_digest(jax_run(name)))
+        elif name in CLI_RUNS:
+            cli[name] = jax_cli(name)
         else:
             intra[name] = dict(INTRA_CASES[name],
                                arrays=jax_intra_case(name))
         print(f"{name}: done", flush=True)
     out["intra_split"] = intra
+    out["cli"] = cli
     _write(path, out)
     return 0
 
