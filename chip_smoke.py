@@ -29,7 +29,11 @@ Phases, each of which raises on failure (non-zero exit, no result line):
                kernel (generic_ms), and the bound computed from the shapes
                and, for the gather, the starts: each distinct plane sample
                that a window covers read once (windows overlap), each
-               window written once
+               window written once; then the band stage's sites (BAND_STEPS,
+               recorded from one run of each step): me_sad on a 192x1280
+               band at B 64, the gathers G 73 and the G 35 pair on 720p
+               bands, the refine window G 38, G 41 and the G 19 pair on
+               544-row 1080p bands (search 64)
   4. paths   — each main path through HomerEncoder(cfg).encode_frames on
                the default device, with the launch counts set to 0 just
                before it and read just after (launches per P frame):
@@ -55,7 +59,7 @@ Phases, each of which raises on failure (non-zero exit, no result line):
                  allintra_rdfast64_720p: BASELINE.md's configuration 1,
                    EncoderConfig(width=1280, height=720, qp=32, cu_size=64,
                    rd_mode=FAST, sample_adaptive_offset=False,
-                   intra_period=1): two split-RDO IDRs, no launch; its small
+                   intra_period=1): one split-RDO IDR, no launch; its small
                    clips are all-intra in every rd_mode at CTU 32 and 64;
                  ibp_fastest_720p, ibp_fast_720p: fastest_720p's and
                    fast_720p's configurations with gop_size 2 on
@@ -70,7 +74,8 @@ Phases, each of which raises on failure (non-zero exit, no result line):
                of the rate control's state after the IDR, and its P frames
                are timed here, in the run that counts the launches); libde265
                decode check where the library loads; each path's small
-               fixture clip too, with and without the kernels;
+               fixture clip too, with and without the kernels (a clip that
+               launched no kernel, all-intra, with them only);
                then cli_cbr_scene_fastest_1080p, BASELINE.md's
                configuration 4 through the port's CLI (app.main, in this
                process, no -device: the card): synth_clip(1920, 1080, 10),
@@ -84,14 +89,30 @@ Phases, each of which raises on failure (non-zero exit, no result line):
                scene-cut attempt); the same frames through
                HomerEncoder(cfg, kernels=False).encode_frame must give the
                same stream and launch nothing
-  5. timing  — after warm-up: 16 P frames end to end on the fixed-CU path,
+  5. mesh    — multi-device on the one card: make_p_frame_sharded on a
+               mesh naming the card lanes x bands times (720p at B 64, 2
+               lanes x 4 bands; 1080p at B 32 with search 64, 2 bands),
+               every output equal to p_frame_device with and without the
+               kernels, launches asserted, the step timed against the
+               single-device stage; fastest_720p and fastest64_720p again
+               with mesh=[card] * 4 (bands of 6, 6, 6, 5 and 3, 3, 3, 3 CTU
+               rows; me_sad 4 and gather_win 8 per P frame) against the
+               fixture, with and without the kernels, and their small clips;
+               8 P frames on one device and on the mesh, in turns;
+               wpp_shards=4 on one card (no mesh, the same AUs); the
+               GopPipeline in two child processes (this script with
+               --gop-worker) over gloo on 127.0.0.1, sharing the card:
+               fastest_720p's configuration with an IDR every 6 frames, span
+               4, 9 frames; both stitched streams must equal the
+               single-process session's
+  6. timing  — after warm-up: 16 P frames end to end on the fixed-CU path,
                8 on each quadtree path (CTU 32 and 64); a P chunk's device
                stage on each; the fixed-CU IDR's device stage, warm, and a
                split-RDO IDR's pass A alone, warm (phase 4 printed each
-               IDR's cold time; pass A in rd_mode FAST, FULL and DIST_ONLY
-               on the all-intra path); fast_720p's split-RDO IDR device
-               stage once more, warm, pass B being all but its pass A; on
-               each IBP path the 9 frames
+               IDR's first time, pass B being all but pass A: a split-RDO
+               IDR reads the same cold and warm; pass A in rd_mode FAST,
+               FULL and DIST_ONLY on the all-intra path); on each IBP path
+               the 9 frames
                after the IDR end to end (fps) and each B frame on its own
                (ms, host clock ending in a synchronize); the 1080p CLI
                path's IDR cold (its first run) and warm (the kernels=False
@@ -99,7 +120,9 @@ Phases, each of which raises on failure (non-zero exit, no result line):
                per P frame, the CLI's fps and the profiler's breakdown
 
 The last three lines are the per-kernel JSON record, the card's name and
-power limit, and {"ok": true, "device": {...}}.
+power limit, and {"ok": true, "device": {...}}. `--gop-worker RANK WORLD
+PORT OUT` runs one process of phase 5's GopPipeline (the script starts
+both).
 """
 
 from __future__ import annotations
@@ -460,6 +483,67 @@ def time_me(dev, cur, ref, mc, H, W, B, S):
     return t
 
 
+def time_gather(dev, name, plane, by, bx, G):
+    """Times of gather_win at one call site: kernel, plain version, empty
+    grid, one PyTorch indexing call per plane, the any-G kernel, and the
+    bound (each distinct plane sample the windows cover read once, each
+    window written once)."""
+    import torch
+
+    from homerhevc_tpu_torch.ops import gather
+
+    def stream():        # the current stream: a graph capture's own, inside
+        return torch.cuda.current_stream(dev).cuda_stream
+
+    def generic(plane, by, bx, G):
+        """The any-G kernel at this site (a yardstick, not counted)."""
+        planes = plane if isinstance(plane, tuple) else (plane,)
+        out = torch.empty((len(planes), by.shape[0], G, G),
+                          dtype=torch.int16, device=dev)
+        ptrs = [p.data_ptr() for p in planes] + [None] * (
+            gather.MAX_PLANES - len(planes))
+        gather.GATHER_WIN.launch_other(
+            "gather_win_generic_launch", *ptrs, len(planes), by.data_ptr(),
+            bx.data_ptr(), out.data_ptr(), by.shape[0], *planes[0].shape, G,
+            stream())
+        return out
+
+    nplanes = len(plane) if isinstance(plane, tuple) else 1
+    nb = by.shape[0]
+    by, bx = by.to(torch.int32).contiguous(), bx.to(torch.int32).contiguous()
+    y0, x0 = clamped_starts(plane, by, bx, G)
+    first = plane[0] if isinstance(plane, tuple) else plane
+    # int16 samples: the distinct ones the windows cover, read once per
+    # plane; every window written once; the starts read once
+    nbytes = (nplanes * 2 * (covered_samples(first.shape, y0, x0, G)
+                             + nb * G * G) + 2 * nb * 4)
+    want = gather.gather_windows_plain(plane, by, bx, G)
+    lib = torch.stack(library_gather(plane, y0, x0, G))
+    if not torch.equal(lib.reshape(-1), want.reshape(-1)):
+        raise AssertionError(f"library gather != plain at {name}")
+    if not torch.equal(generic(plane, by, bx, G).reshape(-1),
+                       want.reshape(-1)):
+        raise AssertionError(f"any-G kernel != plain at {name}")
+    t = dict(
+        site=name, G=G, nb=nb, planes=nplanes,
+        ms=cuda_ms(lambda: gather.gather_windows_cuda(plane, by, bx, G),
+                   100),
+        plain_ms=cuda_ms(lambda: gather.gather_windows_plain(
+            plane, by, bx, G), 50),
+        floor_ms=cuda_ms(lambda: gather.GATHER_WIN.launch_floor(
+            nb, nplanes, stream()), 100),
+        library_ms=cuda_ms(lambda: library_gather(plane, y0, x0, G), 50),
+        generic_ms=cuda_ms(lambda: generic(plane, by, bx, G), 100),
+        bound_bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes")
+    log(f"  gather_win {name} (nb {nb}): kernel {t['ms']:.4f} ms, plain "
+        f"{t['plain_ms']:.4f} ms, empty grid {t['floor_ms']:.4f} ms, "
+        f"one indexing call per plane {t['library_ms']:.4f} ms, any-G "
+        f"kernel {t['generic_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+        f"by bytes ({nbytes} B)")
+    return t
+
+
 def phase_kernels(dev, frames, small_frames, small64_frames, frames1080):
     """Kernel vs plain at the 720p call sites of every path (CTU 32 at
     736x1280, CTU 64 at 768x1280), the fixed-CU path's sites at 1080p
@@ -549,58 +633,8 @@ def phase_kernels(dev, frames, small_frames, small64_frames, frames1080):
         if h >= H:
             sites.update(fast_sites)
 
-    def stream():        # the current stream: a graph capture's own, inside
-        return torch.cuda.current_stream(dev).cuda_stream
-
-    def generic(plane, by, bx, G):
-        """The any-G kernel at this site (a yardstick, not counted)."""
-        planes = plane if isinstance(plane, tuple) else (plane,)
-        out = torch.empty((len(planes), by.shape[0], G, G),
-                          dtype=torch.int16, device=dev)
-        ptrs = [p.data_ptr() for p in planes] + [None] * (
-            gather.MAX_PLANES - len(planes))
-        gather.GATHER_WIN.launch_other(
-            "gather_win_generic_launch", *ptrs, len(planes), by.data_ptr(),
-            bx.data_ptr(), out.data_ptr(), by.shape[0], *planes[0].shape, G,
-            stream())
-        return out
-
-    times = {}
-    for name, (plane, by, bx, G) in sites.items():
-        nplanes = len(plane) if isinstance(plane, tuple) else 1
-        nb = by.shape[0]
-        by, bx = by.to(torch.int32).contiguous(), bx.to(torch.int32).contiguous()
-        y0, x0 = clamped_starts(plane, by, bx, G)
-        first = plane[0] if isinstance(plane, tuple) else plane
-        # int16 samples: the distinct ones the windows cover, read once per
-        # plane; every window written once; the starts read once
-        nbytes = (nplanes * 2 * (covered_samples(first.shape, y0, x0, G)
-                                 + nb * G * G) + 2 * nb * 4)
-        want = gather.gather_windows_plain(plane, by, bx, G)
-        lib = torch.stack(library_gather(plane, y0, x0, G))
-        if not torch.equal(lib.reshape(-1), want.reshape(-1)):
-            raise AssertionError(f"library gather != plain at {name}")
-        if not torch.equal(generic(plane, by, bx, G).reshape(-1),
-                           want.reshape(-1)):
-            raise AssertionError(f"any-G kernel != plain at {name}")
-        t = dict(
-            site=name, G=G, nb=nb, planes=nplanes,
-            ms=cuda_ms(lambda: gather.gather_windows_cuda(plane, by, bx, G),
-                       100),
-            plain_ms=cuda_ms(lambda: gather.gather_windows_plain(
-                plane, by, bx, G), 50),
-            floor_ms=cuda_ms(lambda: gather.GATHER_WIN.launch_floor(
-                nb, nplanes, stream()), 100),
-            library_ms=cuda_ms(lambda: library_gather(plane, y0, x0, G), 50),
-            generic_ms=cuda_ms(lambda: generic(plane, by, bx, G), 100),
-            bound_bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-            bound_by="bytes")
-        times[name] = t
-        log(f"  gather_win {name} (nb {nb}): kernel {t['ms']:.4f} ms, plain "
-            f"{t['plain_ms']:.4f} ms, empty grid {t['floor_ms']:.4f} ms, "
-            f"one indexing call per plane {t['library_ms']:.4f} ms, any-G "
-            f"kernel {t['generic_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-            f"by bytes ({nbytes} B)")
+    times = {name: time_gather(dev, name, *site)
+             for name, site in sites.items()}
     keys = ("ms", "plain_ms", "floor_ms", "library_ms", "bound_ms")
     luma, chroma = times["luma G=41"], times["chroma pair G=19"]
     records["gather_win"] = dict(
@@ -641,9 +675,10 @@ PATHS = {
                              gather_win=2, small="vbr_fastest_small",
                              rc=True),
     # BASELINE.md configuration 1: all-intra 720p, CTU 64, rd FAST, no SAO
-    # (two split-RDO IDRs; no kernel runs in an IDR)
+    # (one split-RDO IDR, the first of the fixture's two; no kernel runs in
+    # an IDR)
     "allintra_rdfast64_720p": dict(
-        run="allintra_rdfast64_720p", frames=2, me_sad=0, gather_win=0,
+        run="allintra_rdfast64_720p", frames=1, me_sad=0, gather_win=0,
         defaults=dict(cu_size=64, rd_mode="FAST",
                       sample_adaptive_offset=False, intra_period=1),
         small=("allintra_rd0_small", "allintra_rd1_small",
@@ -668,13 +703,15 @@ IBP_PATHS = {
 }
 
 
-def run_path(dev, name, fixture, seeds):
+def run_path(dev, name, fixture, seeds, mesh=None):
     """One main path at 720p through the session's entry points on the
     default device; returns its launch counts and the reference planes
     behind its IDR (numpy). The comparison and timing sessions continue
     from those planes (seed_reference) without coding the IDR again here:
     no kernel runs in an IDR, and the split-RDO IDR takes most of a minute.
-    A path with a `seed` starts from `seeds[seed]`."""
+    A path with a `seed` starts from `seeds[seed]`. With a `mesh` (a list of
+    devices) the sessions run their fixed-CU P stages in its bands: the
+    launches per P frame are the path's times the number of bands."""
     import copy
 
     import torch
@@ -682,6 +719,7 @@ def run_path(dev, name, fixture, seeds):
     from homerhevc_tpu_torch.api import HomerEncoder
     from homerhevc_tpu_torch.ops.gather import GATHER_WIN
     from homerhevc_tpu_torch.ops.me import ME_SAD
+    from homerhevc_tpu_torch.parallel.sharded import band_heights
     from homerhevc_tpu_torch.utils import fixtures as fx
 
     path = PATHS[name]
@@ -711,7 +749,12 @@ def run_path(dev, name, fixture, seeds):
     kernels = (ME_SAD, GATHER_WIN)
     for k in kernels:
         k.launches = 0
-    enc = HomerEncoder(cfg)                  # no device given: the card
+    # no device given: the card (the mesh's first device, with a mesh)
+    enc = HomerEncoder(cfg, mesh=mesh)
+    bands = (len(band_heights(cfg.padded_height // cfg.cu_size, len(mesh)))
+             if mesh else 1)
+    if mesh:
+        name = f"{name} on a mesh of {len(mesh)} ({bands} bands)"
     if enc.device.type != "cuda":
         raise AssertionError(f"default device is {enc.device}, not the card")
     torch.cuda.synchronize()
@@ -741,7 +784,7 @@ def run_path(dev, name, fixture, seeds):
         f"{secs:.2f} s (first run, includes warm-up{idr_note}); launches "
         f"{launches}")
     n_p = n - 1
-    expect = {k.name: path[k.name] * n_p for k in kernels}
+    expect = {k.name: path[k.name] * n_p * bands for k in kernels}
     if launches != expect:
         raise AssertionError(f"{name}: launches {launches}, expected "
                              f"{expect} for {n_p} P frames")
@@ -773,12 +816,10 @@ def run_path(dev, name, fixture, seeds):
     if not any(expect.values()):
         # all-intra: every frame is an IDR, which runs no kernel, so a
         # kernels=False run would code the same work again and prove nothing
-        log(f"  {name}: frames after the first, warm, end to end: "
-            f"{p_secs * 1000 / n_p:.1f} ms a frame on {card_line()}; "
-            "kernels=False run skipped (no kernel runs on this path; its "
-            "small clips run both ways below)")
+        log(f"  {name}: kernels=False run skipped (no kernel runs on this "
+            "path)")
     else:
-        plain = HomerEncoder(cfg, device=dev, kernels=False)
+        plain = HomerEncoder(cfg, device=dev, kernels=False, mesh=mesh)
         plain.seed_reference(ref0, poc=1, last_idr=0)
         plain._rc = copy.deepcopy(rc0)
         aus_plain = plain.encode_frames(frames[1:], chunk=run["chunk"])
@@ -792,29 +833,41 @@ def run_path(dev, name, fixture, seeds):
         log(f"  {name}: kernels=False run of the {n_p} P frames: AUs "
             "identical, nothing launched")
 
-    check_small(dev, path["small"], fixture)
+    check_small(dev, path["small"], fixture, mesh)
     return launches, ref0
 
 
-def check_small(dev, names, fixture) -> None:
+def check_small(dev, names, fixture, mesh=None) -> None:
     """The small fixture clips of a path on the card, with and without the
     kernels, through the run's own entry points (push_frame / flush or
-    encode_frames)."""
+    encode_frames), on `mesh` when given. A clip whose run launched no
+    kernel (all-intra) is not run again with the plain versions: that run
+    would repeat the same work."""
     from homerhevc_tpu_torch.api import HomerEncoder
+    from homerhevc_tpu_torch.ops.gather import GATHER_WIN
+    from homerhevc_tpu_torch.ops.me import ME_SAD
     from homerhevc_tpu_torch.utils import fixtures as fx
 
     for small_name in (names,) if isinstance(names, str) else names:
         small = fixture[small_name]
+        launched = 0
         for use_kernels in (True, False):
+            if not (use_kernels or launched):
+                break
+            before = ME_SAD.launches + GATHER_WIN.launches
             enc = HomerEncoder(fx.run_config(small_name), device=dev,
-                               kernels=use_kernels)
+                               kernels=use_kernels, mesh=mesh)
             s_aus = fx.encode_run(enc, small_name)
             enc.close()
+            launched += ME_SAD.launches + GATHER_WIN.launches - before
             if fx.au_digest(s_aus) != small["aus"]:
                 raise AssertionError(f"{small_name}: AUs differ from the JAX "
                                      f"fixture (kernels={use_kernels})")
         log(f"  {small_name}: {small['width']}x{small['height']} AUs == JAX "
-            f"fixture ({len(s_aus)} AUs), with and without kernels")
+            f"fixture ({len(s_aus)} AUs), "
+            + ("with and without kernels" if launched else
+               "no kernel launched, so no plain re-run")
+            + (f", on a mesh of {len(mesh)}" if mesh else ""))
 
 
 def ibp_session(cfg, dev, kernels, events):
@@ -1126,6 +1179,370 @@ def ibp_timing(dev, name, ref0, card: str) -> None:
         f"torch.cuda.synchronize(), on {card}")
 
 
+# The band-sharded fixed-CU stage at full size (phases 3 and 5), on a mesh
+# that names the one card lanes x bands times. Lane g codes frame g + 1 of
+# the clip against frame g, edge-padded to the coded size, at QP 32.
+# 720p at CU 64: 4 bands of 3 CTU rows (halo 24 at search 16); 1080p at CU
+# 32 with search 64: 2 bands of 17 CTU rows through the hierarchical search
+# (halo 72 = PAD). Launches per step: me_sad one per band at search <= 24;
+# gather_win the luma window and the chroma pair per band, and above search
+# 24 the refine window of the hierarchical search too.
+BAND_STEPS = {
+    "band_720p_b64": dict(clip="720p", lanes=2, bands=4, height=768,
+                          width=1280, B=64, search=16, me_sad=8,
+                          gather_win=16),
+    "band_1080p_b32_s64": dict(clip=CLI_PATH, lanes=1, bands=2, height=1088,
+                               width=1920, B=32, search=64, me_sad=0,
+                               gather_win=6),
+}
+# the session paths of phase 4 run again on a mesh of the card named 4
+# times: fastest_720p cuts 23 CTU rows into bands of 6, 6, 6, 5, and
+# fastest64_720p 12 into 3, 3, 3, 3
+MESH_PATHS = ("fastest_720p", "fastest64_720p")
+MESH_BANDS = 4
+# the two-process GopPipeline: fastest_720p's configuration with an IDR
+# every 6 frames, spans of 4, 9 frames (the IDR at POC 6 falls inside the
+# second span); each child's time limit
+GOP_FRAMES, GOP_SPAN, GOP_INTRA_PERIOD = 9, 4, 6
+GOP_TIMEOUT_S = 300
+
+
+def band_inputs(dev, st):
+    """(current, reference) planes of a BAND_STEPS step: two lists of three
+    (lanes, h, w) uint8 tensors on `dev`."""
+    import numpy as np
+    import torch
+
+    from homerhevc_tpu_torch.utils import fixtures as fx
+
+    frames = fx.clip(st["clip"])[:st["lanes"] + 1]
+    H, W = st["height"], st["width"]
+
+    def planes(idx):
+        return [torch.as_tensor(np.stack([
+            pad_plane(frames[i][k], H >> (k > 0), W >> (k > 0))
+            for i in idx]), device=dev) for k in range(3)]
+
+    lanes = list(range(st["lanes"]))
+    return planes([g + 1 for g in lanes]), planes(lanes)
+
+
+def band_step(dev, st, kernels: bool = True):
+    """make_p_frame_sharded for a BAND_STEPS step on a mesh that names
+    `dev` lanes x bands times."""
+    from homerhevc_tpu_torch.parallel import sharded
+    return sharded.make_p_frame_sharded(
+        [[dev] * st["bands"]] * st["lanes"], B=st["B"], search=st["search"],
+        me_precision=2, kernels=kernels)
+
+
+def phase_band_sites(dev, records) -> None:
+    """The kernels at the band stage's call sites: one run of each
+    BAND_STEPS step records the arguments of every distinct kernel call
+    (shapes, B, G); each is held against its plain version (exact) and
+    timed as the other sites are. Adds the sites to `records`."""
+    import torch
+
+    from homerhevc_tpu_torch.ops import gather, me
+
+    seen = {}
+    wrappers = (me.integer_me_cuda, gather.gather_windows_cuda)
+
+    def recorder(kind, fn, step):
+        def call(*args, **kw):
+            if kind == "me_sad":
+                key = (kind, tuple(args[0].shape), kw["B"], kw["search"])
+            else:
+                pair = isinstance(args[0], tuple)
+                first = args[0][0] if pair else args[0]
+                key = (kind, pair, tuple(first.shape), args[3])
+            seen.setdefault(key, (step, args, kw))
+            return fn(*args, **kw)
+        return call
+
+    try:
+        for name, st in BAND_STEPS.items():
+            me.integer_me_cuda = recorder("me_sad", wrappers[0], name)
+            gather.gather_windows_cuda = recorder("gather_win", wrappers[1],
+                                                  name)
+            cur, ref = band_inputs(dev, st)
+            band_step(dev, st)(*cur, *ref, [32] * st["lanes"])
+    finally:
+        me.integer_me_cuda, gather.gather_windows_cuda = wrappers
+    torch.cuda.synchronize()
+    for key, (step, args, kw) in seen.items():
+        if key[0] == "me_sad":
+            cur, ref_pad, mvcost = args
+            H, W = cur.shape
+            label = f"{step}: band {H}x{W}, B={kw['B']}, S={kw['search']}"
+            ck, ik = me.integer_me_cuda(cur, ref_pad, mvcost, **kw)
+            cp, ip = me.integer_me_plain(cur, ref_pad, mvcost, **kw)
+            torch.cuda.synchronize()
+            err = max(int((ck - cp).abs().max()), int((ik - ip).abs().max()))
+            if err or ck.shape != cp.shape:
+                raise AssertionError(f"me_sad != plain at {label}: max abs "
+                                     f"difference {err}")
+            log(f"  me_sad == plain at {label}")
+            t = time_me(dev, cur, ref_pad, mvcost, H, W, kw["B"],
+                        kw["search"])
+            t["site"] = label
+            records["me_sad"]["sites"].append(t)
+        else:
+            plane, by, bx, G = args
+            kind = ("chroma pair" if key[1] else
+                    "hier refine" if G == BAND_STEPS[step]["B"] + 6 else
+                    "luma")
+            label = f"{step}: band {kind} G={G}"
+            err = check_gather(dev, {label: (plane, by, bx, G)}, step)
+            records["gather_win"]["max_abs_err"] = max(
+                records["gather_win"]["max_abs_err"], err)
+            records["gather_win"]["sites"].append(
+                time_gather(dev, label, plane, by, bx, G))
+    kinds = sorted(k[0] for k in seen)
+    if kinds != ["gather_win"] * 5 + ["me_sad"]:
+        raise AssertionError(f"band sites recorded: {sorted(seen)}")
+
+
+def run_band_steps(dev, card: str) -> dict:
+    """Each BAND_STEPS step on the card with the launch counts set to 0
+    just before it and read just after; then every output, lane by lane,
+    against the single-device stage p_frame_device, and the step with
+    kernels=False against it too; then the step's time against the
+    single-device stage's on the same lanes. Returns {step: launches}."""
+    import torch
+
+    from homerhevc_tpu_torch.ops.gather import GATHER_WIN
+    from homerhevc_tpu_torch.ops.me import ME_SAD
+    from homerhevc_tpu_torch.parallel.sharded import OUTPUTS
+    from homerhevc_tpu_torch.pipeline import p_torch
+
+    out = {}
+    for name, st in BAND_STEPS.items():
+        cur, ref = band_inputs(dev, st)
+        qps = [32] * st["lanes"]
+        step = band_step(dev, st)
+        for k in (ME_SAD, GATHER_WIN):
+            k.launches = 0
+        got = step(*cur, *ref, qps)
+        torch.cuda.synchronize()
+        launches = {"me_sad": ME_SAD.launches,
+                    "gather_win": GATHER_WIN.launches}
+        want = {"me_sad": st["me_sad"], "gather_win": st["gather_win"]}
+        if launches != want:
+            raise AssertionError(f"{name}: launches {launches}, expected "
+                                 f"{want}")
+        plain = band_step(dev, st, kernels=False)(*cur, *ref, qps)
+
+        def single():
+            return [p_torch.p_frame_device(
+                *(p[g] for p in cur), *(p[g] for p in ref), B=st["B"],
+                qp=32, search=st["search"], me_precision=2)
+                for g in range(st["lanes"])]
+
+        for g, one in enumerate(single()):
+            for key, a, b in zip(OUTPUTS, got, plain):
+                if not (torch.equal(a[g], one[key])
+                        and torch.equal(b[g], one[key])):
+                    raise AssertionError(f"{name}: {key} of lane {g} differs "
+                                         "from the single-device stage")
+        band_ms = synced_ms(lambda: step(*cur, *ref, qps), 3)
+        single_ms = synced_ms(single, 3)
+        log(f"  {name}: {st['lanes']} lane(s) x {st['bands']} bands of "
+            f"{st['height'] // st['bands']} rows, {st['height']}x"
+            f"{st['width']}, B {st['B']}, search {st['search']}: every "
+            f"output == p_frame_device with and without the kernels; "
+            f"launches {launches}; {band_ms:.1f} ms a step against "
+            f"{single_ms:.1f} ms for the single-device stage on the same "
+            f"lanes (host clock, best of 3, synchronised) on {card}")
+        out[name] = launches
+    return out
+
+
+def mesh_timing(dev, name, ref0, card: str) -> None:
+    """8 P frames end to end from a path's IDR planes, warm, on one device
+    and on the mesh, in turns (one device, mesh, mesh, one device)."""
+    import torch
+
+    from homerhevc_tpu_torch.api import HomerEncoder
+    from homerhevc_tpu_torch.utils import fixtures as fx
+
+    path = PATHS[name]
+    cfg = fx.run_config(path["run"])
+    frames = fx.clip(path["run"])[1:9]
+    ms = {"one device": [], "mesh": []}
+    for label in ("mesh", "one device", "mesh", "mesh", "one device"):
+        mesh = [dev] * MESH_BANDS if label == "mesh" else None
+        enc = HomerEncoder(cfg, device=dev, mesh=mesh)
+        enc.seed_reference(ref0, poc=1, last_idr=0)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        enc.encode_frames(frames, chunk=8)
+        torch.cuda.synchronize()
+        ms[label].append((time.perf_counter() - t) * 1e3)
+        enc.close()
+    ms["mesh"] = ms["mesh"][1:]                 # the first was the warm-up
+    log(f"  {name}: 8 P frames end to end, warm: one device "
+        f"{', '.join(f'{m:.1f}' for m in ms['one device'])} ms, mesh of "
+        f"{MESH_BANDS} {', '.join(f'{m:.1f}' for m in ms['mesh'])} ms "
+        f"(runs in turns) on {card}")
+
+
+def run_wpp_shards(dev, fixture) -> dict:
+    """fastest_720p with wpp_shards 4 and no mesh: the session builds one
+    only where the machine has 4 CUDA devices; the AUs are the fixture's
+    either way. Returns the launches."""
+    import torch
+
+    from homerhevc_tpu_torch.api import HomerEncoder
+    from homerhevc_tpu_torch.ops.gather import GATHER_WIN
+    from homerhevc_tpu_torch.ops.me import ME_SAD
+    from homerhevc_tpu_torch.utils import fixtures as fx
+
+    path = PATHS["fastest_720p"]
+    n = path["frames"]
+    cfg = dataclasses.replace(fx.run_config(path["run"]), wpp_shards=4)
+    for k in (ME_SAD, GATHER_WIN):
+        k.launches = 0
+    enc = HomerEncoder(cfg)
+    meshed = torch.cuda.device_count() >= 4
+    if (enc._mesh is not None) != meshed:
+        raise AssertionError(f"wpp_shards=4 with {torch.cuda.device_count()}"
+                             f" CUDA device(s): mesh {enc._mesh}")
+    aus = enc.encode_frames(fx.clip(path["run"])[:n], chunk=8)
+    enc.close()
+    torch.cuda.synchronize()
+    launches = {"me_sad": ME_SAD.launches, "gather_win": GATHER_WIN.launches}
+    bands = 4 if meshed else 1
+    want = {k: path[k] * (n - 1) * bands for k in launches}
+    if launches != want:
+        raise AssertionError(f"wpp_shards=4: launches {launches}, expected "
+                             f"{want}")
+    if fx.au_digest(aus) != fixture[path["run"]]["aus"][:n]:
+        raise AssertionError("wpp_shards=4: AUs differ from the JAX fixture")
+    log(f"  fastest_720p with wpp_shards=4 on {torch.cuda.device_count()} "
+        f"CUDA device(s): {'a mesh of 4' if meshed else 'no mesh'}, AUs == "
+        f"JAX fixture ({n} AUs), launches {launches}")
+    return launches
+
+
+def gop_config():
+    """The GopPipeline's configuration: fastest_720p's with an IDR every
+    GOP_INTRA_PERIOD frames."""
+    from homerhevc_tpu_torch.utils import fixtures as fx
+    return dataclasses.replace(fx.run_config(PATHS["fastest_720p"]["run"]),
+                               intra_period=GOP_INTRA_PERIOD)
+
+
+def gop_worker(argv) -> int:
+    """One process of the GopPipeline (chip_smoke.py --gop-worker RANK
+    WORLD PORT OUT): joins the gloo group on 127.0.0.1:PORT, encodes its
+    spans on the card and writes the stitched stream's AU digests and its
+    own launch counts to OUT (JSON)."""
+    from homerhevc_tpu_torch.ops.gather import GATHER_WIN
+    from homerhevc_tpu_torch.ops.me import ME_SAD
+    from homerhevc_tpu_torch.parallel import multihost
+    from homerhevc_tpu_torch.utils import fixtures as fx
+
+    rank, world, port, out = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    multihost.init(rank, world, coordinator=f"127.0.0.1:{port}")
+    pipe = multihost.GopPipeline(gop_config(), span=GOP_SPAN)
+    try:
+        aus = pipe.encode(fx.clip("720p")[:GOP_FRAMES])
+    finally:
+        pipe.close()
+    with open(out, "w") as f:
+        json.dump(dict(aus=fx.au_digest(aus), launches={
+            "me_sad": ME_SAD.launches, "gather_win": GATHER_WIN.launches}), f)
+    return 0
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_gop_pipeline(card: str) -> dict:
+    """The GopPipeline in two child processes sharing the card, over gloo
+    on a free 127.0.0.1 port: both stitched streams must equal the
+    single-process session's (encode_frame frame by frame, in this
+    process). Each child is killed at its time limit; a non-zero exit
+    fails. Returns the children's launches together."""
+    import torch
+
+    from homerhevc_tpu_torch.api import HomerEncoder
+    from homerhevc_tpu_torch.utils import fixtures as fx
+
+    frames = fx.clip("720p")[:GOP_FRAMES]
+    enc = HomerEncoder(gop_config())
+    t = time.perf_counter()
+    want = fx.au_digest([enc.encode_frame(*f) for f in frames])
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t
+    enc.close()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_gop_")
+    outs = [os.path.join(workdir, f"rank{r}.json") for r in range(2)]
+    port = str(free_port())
+    t = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--gop-worker", str(r),
+         "2", port, outs[r]], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    texts = []
+    try:
+        for p in procs:
+            texts.append(p.communicate(timeout=GOP_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    pipe_s = time.perf_counter() - t
+    for r, (p, text) in enumerate(zip(procs, texts)):
+        if p.returncode != 0:
+            raise AssertionError(f"GopPipeline rank {r} exited "
+                                 f"{p.returncode}:\n{text[-4000:]}")
+    res = []
+    for path in outs:
+        with open(path) as f:
+            res.append(json.load(f))
+    shutil.rmtree(workdir)
+    for r, got in enumerate(res):
+        if got["aus"] != want:
+            raise AssertionError(f"GopPipeline rank {r}: stream differs from "
+                                 "the single-process session's")
+    # rank 0 codes spans 0 and 2 (P frames 1-3 and 8), rank 1 span 1 (P
+    # frames 4, 5 and 7; 6 is the IDR): one me_sad and two gathers each
+    per_rank = [r["launches"] for r in res]
+    if per_rank != [{"me_sad": 4, "gather_win": 8},
+                    {"me_sad": 3, "gather_win": 6}]:
+        raise AssertionError(f"GopPipeline launches per rank {per_rank}")
+    log(f"  GopPipeline, 2 processes over gloo sharing the card: both "
+        f"stitched streams ({GOP_FRAMES} AUs, span {GOP_SPAN}, IDR at POC 0 "
+        f"and {GOP_INTRA_PERIOD}) == the single-process session's; launches "
+        f"per rank {per_rank}; {pipe_s:.1f} s from spawn to both exits "
+        f"(process start, CUDA set-up and kernel loading included), against "
+        f"{single_s:.1f} s for the single-process session's frames (warm "
+        f"process) on {card}")
+    return {k: sum(r[k] for r in per_rank) for k in per_rank[0]}
+
+
+def phase_mesh(dev, fixture, by_path, card: str) -> None:
+    """Multi-device on the one card: the band stage at full size, the
+    session on a mesh of 4 (fastest_720p, fastest64_720p) and with
+    wpp_shards 4, the two-process GopPipeline. Adds each run's launches to
+    `by_path`."""
+    for name, launches in run_band_steps(dev, card).items():
+        by_path[name] = (launches, None)
+    for name in MESH_PATHS:
+        by_path[f"{name}_mesh{MESH_BANDS}"] = run_path(
+            dev, name, fixture, {}, mesh=[dev] * MESH_BANDS)
+    mesh_timing(dev, "fastest_720p", by_path["fastest_720p"][1], card)
+    by_path["wpp_shards4_720p"] = (run_wpp_shards(dev, fixture), None)
+    by_path["gop_pipeline_720p"] = (run_gop_pipeline(card), None)
+
+
 def synced_ms(fn, reps: int = 1) -> float:
     """Least host-clock milliseconds of `reps` synchronised calls of fn."""
     import torch
@@ -1140,13 +1557,12 @@ def synced_ms(fn, reps: int = 1) -> float:
     return best
 
 
-def phase_timing(dev, name, n_p: int, ref0, card: str,
-                 idr_warm: bool = False):
+def phase_timing(dev, name, n_p: int, ref0, card: str):
     """End-to-end and device-stage times of one path at 720p; the sessions
     continue from the planes `ref0` behind the IDR. A fixed-CU IDR's device
     stage is timed warm (phase 4 coded it once). A split-RDO IDR takes most
-    of a minute or more: its pass A is timed alone, and only with
-    `idr_warm` its whole device stage once, warm, pass B being the rest."""
+    of a minute or more, the same cold and warm: phase 4 printed its time,
+    and only its pass A is timed here."""
     import numpy as np
     import torch
 
@@ -1185,19 +1601,13 @@ def phase_timing(dev, name, n_p: int, ref0, card: str,
     yp = tuple(torch.as_tensor(p, device=dev)
                for p in enc2._pad_frame(*frames[0]))
     tu = enc.params.max_tr_depth_intra
-    if enc.intra_split and not idr_warm:
-        # a split-RDO IDR takes most of a minute or more (phase 4 printed
-        # its cold time); of it only pass A is timed again here, warm
+    if enc.intra_split:
         pass_a_timing(dev, name, yp[0], cfg, bool(tu), card)
     else:
         ms = synced_ms(lambda: intra_torch.encode_frame_intra(
-            *yp, B=enc.ctu, qp=cfg.qp, sign_hiding=True,
-            split_rdo=enc.intra_split, tu_depth=tu))
+            *yp, B=enc.ctu, qp=cfg.qp, sign_hiding=True, split_rdo=False,
+            tu_depth=tu))
         log(f"  {name}: IDR device stage (warm): {ms:.1f} ms on {card}")
-        if enc.intra_split:
-            ms_a = pass_a_timing(dev, name, yp[0], cfg, bool(tu), card)
-            log(f"  {name}: IDR pass B (closed-loop wavefront, warm): the "
-                f"rest, {ms - ms_a:.1f} ms on {card}")
     enc.close()
     enc2.close()
 
@@ -1232,6 +1642,8 @@ def main() -> int:
               "False)", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    if sys.argv[1:2] == ["--gop-worker"]:
+        return gop_worker(sys.argv[2:])
     with open(FIXTURE) as f:
         fixture = json.load(f)
     from homerhevc_tpu_torch.device import require_cuda
@@ -1243,7 +1655,7 @@ def main() -> int:
 
     dev = require_cuda()
     card = card_line()
-    log(f"[1/5] device: {card}; torch {torch.__version__}, CUDA "
+    log(f"[1/6] device: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)} "
         f"x{torch.cuda.device_count()}, max SM clock "
         f"{max_sm_hz() / 1e6:.0f} MHz")
@@ -1254,7 +1666,7 @@ def main() -> int:
         k.load()
     t1 = time.perf_counter()
     henc = native_backend.build_library()
-    log(f"[2/5] build: kernels {t1 - t0:.2f} s (nvcc -gencode "
+    log(f"[2/6] build: kernels {t1 - t0:.2f} s (nvcc -gencode "
         f"arch=compute_90a,code=sm_90a, ctypes binding), libhenc "
         f"{time.perf_counter() - t1:.2f} s (g++, {os.path.basename(henc)})")
     for lib in libs:
@@ -1264,21 +1676,25 @@ def main() -> int:
                 log("  " + line.replace("ptxas info    : ", ""))
 
     frames = clip("720p")
-    log("[3/5] kernels vs plain (exact equality):")
+    log("[3/6] kernels vs plain (exact equality):")
     records = phase_kernels(dev, frames, clip("small"), clip("default_small"),
                             clip(CLI_PATH)[:2])
+    phase_band_sites(dev, records)
 
-    log("[4/5] main paths at 1280x720:")
+    log("[4/6] main paths at 1280x720:")
     by_path = {}
     for name in PATHS:
         by_path[name] = run_path(dev, name, fixture,
                                  {p: r[1] for p, r in by_path.items()})
     for name in IBP_PATHS:
         by_path[name] = run_ibp_path(dev, name, fixture)
-    log("[4/5] BASELINE.md configuration 4 at 1920x1080 through the port's "
+    log("[4/6] BASELINE.md configuration 4 at 1920x1080 through the port's "
         "CLI:")
     workdir = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     by_path[CLI_PATH] = run_cli_path(dev, fixture, workdir)
+    log("[5/6] multi-device on the one card (meshes that name it several "
+        "times; two processes sharing it):")
+    phase_mesh(dev, fixture, by_path, card)
     for kernel, rec in records.items():
         rec["launches_by_path"] = {p: c[0][kernel]
                                    for p, c in by_path.items()}
@@ -1286,12 +1702,10 @@ def main() -> int:
         if not rec["launches"]:
             raise AssertionError(f"{kernel} was launched on no main path")
 
-    log("[5/5] timing:")
-    # the CTU-32 split-RDO IDR's device stage is timed warm once more
+    log("[6/6] timing:")
     for name, n_p in (("fastest_720p", 16), ("fast_720p", 8),
                       ("default_720p", 8)):
-        phase_timing(dev, name, n_p, by_path[name][1], card,
-                     idr_warm=name == "fast_720p")
+        phase_timing(dev, name, n_p, by_path[name][1], card)
     run = PATHS["allintra_rdfast64_720p"]["run"]
     y = torch.as_tensor(pad_plane(clip(run)[0][0], 768, 1280), device=dev)
     pass_a_timing(dev, "allintra_rdfast64_720p", y, run_config(run), True,

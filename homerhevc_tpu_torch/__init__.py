@@ -17,9 +17,12 @@ hierarchical ME, inter TU split and intra-in-P at CTU 32) and
 FULL_COMPUTATION (the quadtree down to 8x8 inter CUs); fixed QP, CBR or VBR
 (per-CTU-row QPs on the quadtree path); WPP or not; every rd_mode (FULL,
 FAST, DIST_ONLY); all-intra (intra_period 1); and B frames (gop_size >= 2:
-IBP through push_frame / flush) at cu_size 32. cu_size 16, B frames at
-cu_size 64, wpp_shards > 1 and bit_depth != 8 raise NotImplementedError
-naming the setting.
+IBP through push_frame / flush) at cu_size 32; several devices: a band
+mesh (`HomerEncoder(mesh=...)`, or `wpp_shards` > 1 where the machine has
+that many CUDA devices) runs the fixed-CU P stages in bands, and the
+GopPipeline spreads frame spans over processes (torch.distributed, gloo).
+cu_size 16, B frames at cu_size 64 and bit_depth != 8 raise
+NotImplementedError naming the setting.
 
 Layer map:
   app.py                  — the console app (homer_app_torch.py launches
@@ -43,6 +46,10 @@ Layer map:
                             device loop + wire), b_golden (host plans of
                             B frames), assemble (headers + slice data ->
                             Annex-B)
+  parallel/               — sharded (the band- and lane-sharded fixed-CU P
+                            stage on a mesh of devices, halo exchange
+                            device to device), multihost (the round-robin
+                            frame-span GopPipeline across processes)
   kernels/                — hand-written CUDA kernels for sm_90a + build
   utils/, validate/       — synthetic clips, YUV file I/O, PSNR, the stage
                             profiler, the reference runs' fixtures helpers,

@@ -43,6 +43,7 @@ from .device import require_cuda
 from .entropy import headers, native_backend
 from .ops.inter_golden import derive_block_decisions_fast
 from .ops.sao import sao_stage_device
+from .parallel import sharded
 from .pipeline import (assemble, b_golden, b_torch, intra_torch, p_chunk,
                        p_torch)
 from .rate_control import RateControl
@@ -67,20 +68,51 @@ def _tree_decisions(depth_u, mv_u, nz_u, ctu_log2: int, n_cand: int = 5,
         depth_u, mv_u, nz_u, ctu_log2, n_cand, pred_intra_u=pred_intra_u)
 
 
+def _device(d) -> torch.device:
+    """A torch.device with the current CUDA device's index where a CUDA
+    device names none."""
+    d = torch.device(d)
+    if d.type == "cuda" and d.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+def _band_mesh(mesh, wpp_shards: int, device: torch.device):
+    """The session's band axis: `mesh` as devices, or for wpp_shards > 1 on
+    a CUDA session with that many CUDA devices, that many from the
+    session's own on; None for one device."""
+    if mesh is None:
+        n = torch.cuda.device_count() if device.type == "cuda" else 0
+        if wpp_shards <= 1 or n < wpp_shards:
+            return None
+        return [torch.device("cuda", (device.index + i) % n)
+                for i in range(wpp_shards)]
+    devs = [_device(d) for d in mesh]
+    if not devs:
+        raise ValueError("mesh: no device")
+    if any(d.type != device.type for d in devs):
+        raise ValueError(f"mesh {[str(d) for d in devs]} names a device of "
+                         f"another type than the session's {device}")
+    if devs[0] != device:
+        raise ValueError(f"mesh starts at {devs[0]}, not at the session's "
+                         f"device {device}")
+    return devs if len(devs) > 1 else None
+
+
 def check_slice(c: EncoderConfig) -> None:
     """Raise NotImplementedError for any setting outside the ported slice:
     cu_size 32 and 64 in every performance mode, any bitrate_mode, WPP or
     not, every rd_mode, IPPP, and B frames (gop_size >= 2) at cu_size 32;
-    one device, 8-bit. (The JAX package has no quadtree P stage at cu_size
-    16: FAST and FULL fail there; its B stage codes TU = CU, and at cu_size
-    64 asks for a 64-point DCT, which HEVC does not have.)"""
+    any wpp_shards (a band mesh, see HomerEncoder); 8-bit. (The JAX package
+    has no quadtree P stage at cu_size 16: FAST and FULL fail there; its B
+    stage codes TU = CU, and at cu_size 64 asks for a 64-point DCT, which
+    HEVC does not have.)"""
     checks = (
         (c.cu_size == 16, f"cu_size={c.cu_size} "
                           f"({c.performance_mode.name})"),
         (c.gop_size >= 2 and c.cu_size == 64,
          f"gop_size={c.gop_size} at cu_size=64 (B frames: the reference's "
          "B stage codes TU = CU and asks for a 64-point DCT)"),
-        (c.wpp_shards > 1, f"wpp_shards={c.wpp_shards}"),
         (c.bit_depth != 8, f"bit_depth={c.bit_depth}"),
     )
     for bad, what in checks:
@@ -91,10 +123,22 @@ def check_slice(c: EncoderConfig) -> None:
 
 class HomerEncoder:
     """Streaming HEVC encoder session (IDR + P low-delay, or IBP through
-    push_frame) on one device.
+    push_frame) on one device, or with its fixed-CU P stages in bands on a
+    mesh of devices.
 
     `device=None` (the default) is the CUDA device, and raises RuntimeError
     when there is none; a caller that wants the CPU says `device="cpu"`.
+    `mesh` is a sequence of devices, the band axis (a device may be named
+    several times); without it, `cfg.wpp_shards > 1` on a CUDA session
+    builds one over that many CUDA devices from the session's own when the
+    machine has them, and none otherwise (as the JAX package does). With a
+    mesh, every fixed-CU P stage (FASTEST and FASTER P frames, per frame and
+    in chunks, and the explicit P frames of IBP) runs in bands of whole CTU
+    rows (parallel/sharded.py); everything else runs on the mesh's first
+    device, which is the session's device (`device`, when not given). The
+    AUs are the same with or without a mesh. A mesh whose devices are of
+    another type than the session's, or whose first device is not the
+    session's, raises ValueError.
     `cfg` must be this package's `EncoderConfig` (TypeError otherwise: the
     enums of another package compare unequal to these).
     `kernels=False` runs the plain PyTorch versions of the hand-written
@@ -104,7 +148,7 @@ class HomerEncoder:
     the JAX session's names; by default the disabled NULL, which reads no
     clock and waits for nothing."""
 
-    def __init__(self, cfg: EncoderConfig, *, device=None,
+    def __init__(self, cfg: EncoderConfig, *, device=None, mesh=None,
                  kernels: bool = True, fetch_recon: bool = True,
                  profiler=None):
         if not isinstance(cfg, EncoderConfig):
@@ -115,8 +159,10 @@ class HomerEncoder:
         self.cfg = cfg.validate()
         check_slice(self.cfg)
         c = self.cfg
-        self.device = (require_cuda() if device is None
-                       else torch.device(device))
+        if device is None and mesh:
+            device = mesh[0]
+        self.device = _device(require_cuda() if device is None else device)
+        self._mesh = _band_mesh(mesh, c.wpp_shards, self.device)
         self.kernels = kernels
         self.fetch_recon = fetch_recon
         self.prof = profiler if profiler is not None else NULL
@@ -326,12 +372,8 @@ class HomerEncoder:
                 return self._encode(yp, up, vp, True, self._scene_cut(qp))
         else:
             with prof.probe("p.device"):
-                out = p_torch.p_frame_device(
-                    ydev, udev, vdev, *self._ref, B=size, qp=qp,
-                    search=c.me_search_range,
-                    me_precision=int(c.motion_estimation_precision),
-                    deblock=c.deblocking, sign_hiding=c.sign_hiding,
-                    kernels=self.kernels)
+                out = self._fixed_p_device(self._cur_dev, self._ref, qp,
+                                           deblock=c.deblocking)
             mvs, sad, lev = self._fixed_p_fetch(out["wire"], size, "p")
             if c.reinit_gop_on_scene_change:
                 ms = float(sad.astype(np.int64).mean())
@@ -352,6 +394,18 @@ class HomerEncoder:
             with prof.probe("ref.fetch"):
                 recon = tuple(p.cpu().numpy() for p in self._ref)
         return au, recon
+
+    def _fixed_p_device(self, cur, ref, qp, *, deblock: bool) -> dict:
+        """The fixed-CU P stage of one frame against `ref` (p_torch.
+        p_frame_device's result), in bands when the session has a mesh."""
+        c = self.cfg
+        kw = dict(B=self.ctu, qp=qp, search=c.me_search_range,
+                  me_precision=int(c.motion_estimation_precision),
+                  deblock=deblock, sign_hiding=c.sign_hiding,
+                  kernels=self.kernels)
+        if self._mesh is None:
+            return p_torch.p_frame_device(*cur, *ref, **kw)
+        return sharded.p_frame_bands(self._mesh, *cur, *ref, **kw)
 
     def _fixed_p_fetch(self, wire, size: int, stage: str):
         """One fetch of a fixed-CU P frame's device wire (probe
@@ -560,11 +614,7 @@ class HomerEncoder:
         with prof.probe("p_expl.upload"):
             cur = tuple(self._upload(p) for p in self._pad_frame(*frame))
         with prof.probe("p_expl.device"):
-            out = p_torch.p_frame_device(
-                *cur, *ref, B=size, qp=qp, search=c.me_search_range,
-                me_precision=int(c.motion_estimation_precision),
-                deblock=False, sign_hiding=c.sign_hiding,
-                kernels=self.kernels)
+            out = self._fixed_p_device(cur, ref, qp, deblock=False)
         mvs, _, lev = self._fixed_p_fetch(out["wire"], size, "p_expl")
         maps = self._fixed_p_maps(mvs, lev, size, "p_expl")
         with prof.probe("p_expl.entropy"):
@@ -693,7 +743,7 @@ class HomerEncoder:
                 cap=self._chunk_cap, tree=self.inter_split,
                 qp_rows=(None if row_plans is None
                          else self._upload(row_plans.astype(np.int32))),
-                **self._tree_kwargs())
+                mesh=self._mesh, **self._tree_kwargs())
         self._ref = (fy, fu, fv)
         host, done = wires, None
         if self._copy_stream is not None:

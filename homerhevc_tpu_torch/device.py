@@ -41,13 +41,16 @@ def first_argmin(x: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.where(x == m, ar, n).min(dim=dim).values
 
 
-def edge_pad(plane: torch.Tensor, pad: int) -> torch.Tensor:
+def edge_pad(plane: torch.Tensor, pad: int,
+             pad_cols: int | None = None) -> torch.Tensor:
     """Edge-replicate padding of a 2-D plane (np.pad mode='edge') by
-    clamped indexing, for any integer dtype."""
+    clamped indexing, for any integer dtype: `pad` rows above and below,
+    `pad_cols` columns left and right (`pad` when not given)."""
     H, W = plane.shape
     dev = plane.device
+    pc = pad if pad_cols is None else pad_cols
     ys = torch.arange(-pad, H + pad, device=dev).clamp(0, H - 1)
-    xs = torch.arange(-pad, W + pad, device=dev).clamp(0, W - 1)
+    xs = torch.arange(-pc, W + pc, device=dev).clamp(0, W - 1)
     return plane[ys][:, xs]
 
 

@@ -109,6 +109,14 @@ class CudaKernel:
         self._check(self.load()(*args))
         self.launches += 1
 
+    def launch_on(self, device, *args) -> None:
+        """Launch on `device`'s current stream with `device` made current
+        for the call (the stream's own device: a launch on another device's
+        stream fails), the stream being the launcher's last argument."""
+        import torch
+        with torch.cuda.device(device):
+            self.launch(*args, torch.cuda.current_stream(device).cuda_stream)
+
     def launch_other(self, symbol: str, *args) -> None:
         """Launch another entry of the library that takes the launcher's
         arguments (a yardstick for timing; not counted as a launch of the

@@ -75,9 +75,8 @@ def gather_windows_cuda(plane, by: torch.Tensor, bx: torch.Tensor,
                       device=first.device)
     ptrs = [p.data_ptr() for p in planes] + [None] * (MAX_PLANES
                                                      - len(planes))
-    stream = torch.cuda.current_stream(first.device).cuda_stream
-    GATHER_WIN.launch(*ptrs, len(planes), by.data_ptr(), bx.data_ptr(),
-                      out.data_ptr(), nb, Hp, Wp, G, stream)
+    GATHER_WIN.launch_on(first.device, *ptrs, len(planes), by.data_ptr(),
+                         bx.data_ptr(), out.data_ptr(), nb, Hp, Wp, G)
     return out[0] if single else out
 
 

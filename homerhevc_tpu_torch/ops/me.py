@@ -84,11 +84,11 @@ def integer_me_cuda(cur, ref_pad, mvcost, *, B: int, search: int,
     mvcost = mvcost.contiguous()
     cost = torch.empty((H // B, W // B), dtype=torch.int32, device=cur.device)
     idx = torch.empty_like(cost)
-    stream = torch.cuda.current_stream(cur.device).cuda_stream
-    ME_SAD.launch(cur.data_ptr(), ref_pad.data_ptr(), mvcost.data_ptr(),
-                  cost.data_ptr(), idx.data_ptr(), H, W, ref_pad.shape[1],
-                  B, search, pad, int(cur.dtype == torch.uint8),
-                  int(ref_pad.dtype == torch.uint8), stream)
+    ME_SAD.launch_on(cur.device, cur.data_ptr(), ref_pad.data_ptr(),
+                     mvcost.data_ptr(), cost.data_ptr(), idx.data_ptr(), H,
+                     W, ref_pad.shape[1], B, search, pad,
+                     int(cur.dtype == torch.uint8),
+                     int(ref_pad.dtype == torch.uint8))
     return cost, idx
 
 

@@ -27,6 +27,7 @@ import torch
 from .. import tables
 from ..device import I32, edge_pad
 from ..ops import sao as sao_ops
+from ..parallel import sharded
 from . import p_torch
 from .p_torch import PAD
 
@@ -118,7 +119,7 @@ def p_chunk_device(ys, us, vs, ref_y, ref_u, ref_v, qps, *, ctu: int,
                    deblock: bool, sao: bool, cap: int, tree: bool = False,
                    tr_split: bool = False, intra_in_p: bool = False,
                    cu8: bool = False, qp_rows=None, wpp: bool = False,
-                   vis=None, kernels: bool = True):
+                   vis=None, kernels: bool = True, mesh=None):
     """Encode K consecutive P frames on the device.
 
     ys (K, H, W) uint8 etc., ref_* uint8 planes, qps (K,) int32 on the
@@ -126,7 +127,9 @@ def p_chunk_device(ys, us, vs, ref_y, ref_u, ref_v, qps, *, ctu: int,
     `intra_in_p`, 8x8 CUs `cu8`, the visible size `vis`, and with
     `qp_rows` (K, H // ctu) int32 one QP per CTU row of each frame, whose
     decoded-QP model follows `wpp`) over the fixed-CU one, which codes each
-    frame at its QP in `qps`. Returns
+    frame at its QP in `qps`, in bands on the devices of `mesh` when given
+    (parallel/sharded.py; the rest of the loop runs on the planes' device).
+    Returns
     (wires (K, L) int32, denses (K, D) int16 dense level planes for the
     capacity-overflow fallback, final reference planes)."""
     K, H, W = ys.shape
@@ -136,12 +139,13 @@ def p_chunk_device(ys, us, vs, ref_y, ref_u, ref_v, qps, *, ctu: int,
     wires, denses = [], []
     for k in range(K):
         y, u, v, qp = ys[k], us[k], vs[k], qps[k]
-        ryp = edge_pad(ry8.to(torch.int16), PAD)
-        rup = edge_pad(ru8.to(torch.int16), PAD // 2)
-        rvp = edge_pad(rv8.to(torch.int16), PAD // 2)
+        if tree or mesh is None:
+            padded = (edge_pad(ry8.to(torch.int16), PAD),
+                      edge_pad(ru8.to(torch.int16), PAD // 2),
+                      edge_pad(rv8.to(torch.int16), PAD // 2))
         if tree:
             res = p_torch._p_stage_tree(
-                y, u, v, ryp, rup, rvp, ctu=ctu, qp=qp, search=search,
+                y, u, v, *padded, ctu=ctu, qp=qp, search=search,
                 me_precision=me_precision, sign_hiding=sign_hiding,
                 tr_split=tr_split, intra_in_p=intra_in_p, cu8=cu8,
                 qp_rows=None if qp_rows is None else qp_rows[k], wpp=wpp,
@@ -150,9 +154,13 @@ def p_chunk_device(ys, us, vs, ref_y, ref_u, ref_v, qps, *, ctu: int,
             intra_u, mv_u = res["pred_intra_u"], res["mv_u"]
             lev = (res["lev_y"], res["lev_u"], res["lev_v"])
         else:
-            res = p_torch._p_stage(y, u, v, ryp, rup, rvp, B=ctu, qp=qp,
-                                   search=search, me_precision=me_precision,
-                                   sign_hiding=sign_hiding, kernels=kernels)
+            stage = dict(B=ctu, qp=qp, search=search,
+                         me_precision=me_precision, sign_hiding=sign_hiding,
+                         kernels=kernels)
+            res = (p_torch._p_stage(y, u, v, *padded, **stage)
+                   if mesh is None else
+                   sharded.band_p_stage(mesh, y, u, v, ry8, ru8, rv8,
+                                        **stage))
             depth_u = trd_u = intra_u = torch.zeros((uh, uw), dtype=I32,
                                                     device=dev)
             mv_u = p_torch._upu(res["mvs"], ctu)

@@ -87,9 +87,11 @@ def to_plane(blocks: torch.Tensor) -> torch.Tensor:
 
 def _p_stage(y_pad, u_pad, v_pad, ry, ru, rv, *, B: int, qp, search: int,
              me_precision: int, sign_hiding: bool = False,
-             kernels: bool = True):
+             kernels: bool = True, top_mv=None):
     """Core frame-batched P stage over PAD-pre-padded int16 reference
-    planes (dense integer search, the reference's `_p_stage`)."""
+    planes (dense integer search, the reference's `_p_stage`). `top_mv`:
+    see `_level_encode`; the result's `amvp` holds every block's refined
+    MV before the merge decision, (nby, nbx, 2)."""
     dev = y_pad.device
     qp = _qp_tensor(qp, dev)
     qp_c = tables.chroma_qp_t(qp)
@@ -101,7 +103,8 @@ def _p_stage(y_pad, u_pad, v_pad, ry, ru, rv, *, B: int, qp, search: int,
         return _p_stage_tail(cur, u_pad, v_pad, ry, ru, rv, ivy, ivx,
                              best_cost, B=B, qp=qp, qp_c=qp_c, lam=lam,
                              search=search, me_precision=me_precision,
-                             sign_hiding=sign_hiding, kernels=kernels)
+                             sign_hiding=sign_hiding, kernels=kernels,
+                             top_mv=top_mv)
     n = 2 * search + 1
     mvcost = (lam * const(_mv_bits_grid(search), dev)) >> 8
     # the kernel takes the uint8 or int16 plane as it is (no conversion
@@ -113,12 +116,12 @@ def _p_stage(y_pad, u_pad, v_pad, ry, ru, rv, *, B: int, qp, search: int,
     return _p_stage_tail(cur, u_pad, v_pad, ry, ru, rv, ivy, ivx, best_cost,
                          B=B, qp=qp, qp_c=qp_c, lam=lam, search=search,
                          me_precision=me_precision, sign_hiding=sign_hiding,
-                         kernels=kernels)
+                         kernels=kernels, top_mv=top_mv)
 
 
 def _level_encode(cur, u_pad, v_pad, ry, ru, rv, ivy, ivx, *, S, qp, qp_c,
                   lam, search, me_precision, sign_hiding, tr_split=False,
-                  qp_rows=None, vis=None, kernels: bool = True):
+                  qp_rows=None, vis=None, kernels: bool = True, top_mv=None):
     """Subpel refinement + merge/skip RD + MC + residual coding for every
     S-sized block (S in {8, 16, 32, 64}; a 64-block codes its residual as
     four 32-TBs, its chroma as four 16-TBs, each with its own skip-vs-code
@@ -129,7 +132,11 @@ def _level_encode(cur, u_pad, v_pad, ry, ru, rv, ivy, ivx, *, S, qp, qp_c,
     `vis` = (height, width) of the visible picture: no residual is spent
     on the padding beyond it. `qp_rows` (one QP per CTU row) gives every
     block its row's QP for quantisation, sign hiding and the RD lambdas;
-    the ME lambda `lam` stays the frame's."""
+    the ME lambda `lam` stays the frame's. `top_mv` (nbx, 2) holds the
+    refined MVs of the block row above the first (a band's neighbour above,
+    parallel/sharded.py): the merge candidate `top` of the first row reads
+    them; without it that row has none, as at the picture's top. `amvp` is
+    every block's refined MV before the merge decision (nby, nbx, 2)."""
     H, W = cur.shape
     nby, nbx = H // S, W // S
     nb = nby * nbx
@@ -236,8 +243,14 @@ def _level_encode(cur, u_pad, v_pad, ry, ru, rv, ivy, ivx, *, S, qp, qp_c,
     zero_pred = _blocks(ry[PAD:PAD + H, PAD:PAD + W].to(I32), S)
     sad_z = (blk - zero_pred).abs().sum(dim=(-1, -2))
     zeros = torch.zeros((nb,), dtype=I32, device=dev)
+    if top_mv is None:
+        top = (shifted(mvxg, -1, 0), shifted(mvyg, -1, 0), r > 0)
+    else:
+        top = (torch.cat([top_mv[None, :, 0], mvxg[:-1]]).reshape(-1),
+               torch.cat([top_mv[None, :, 1], mvyg[:-1]]).reshape(-1),
+               r >= 0)
     cands = [(shifted(mvxg, 0, -1), shifted(mvyg, 0, -1), c > 0, MB_LEFT),
-             (shifted(mvxg, -1, 0), shifted(mvyg, -1, 0), r > 0, MB_TOP),
+             (*top, MB_TOP),
              (zeros, zeros, None, MB_ZERO)]
     for ki, (cmx, cmy, valid, mb) in enumerate(cands):
         if mb == MB_ZERO:
@@ -399,25 +412,39 @@ def _level_encode(cur, u_pad, v_pad, ry, ru, rv, ivy, ivx, *, S, qp, qp_c,
     out.update({k: t.reshape(nby, nbx).to(I32)
                 for k, t in (("mvx", mvx), ("mvy", mvy), ("cost", cost),
                              ("trd", trd))})
+    out["amvp"] = torch.stack([mvxg, mvyg], -1).to(I32)
     return out
 
 
 def _p_stage_tail(cur, u_pad, v_pad, ry, ru, rv, ivy, ivx, best_cost, *,
                   B, qp, qp_c, lam, search, me_precision, sign_hiding,
-                  kernels=True):
+                  kernels=True, top_mv=None):
     """Subpel refinement + MC + residual coding behind the integer search
     (fixed CU = B grid), and the one-buffer host wire of a P frame."""
     e = _level_encode(cur, u_pad, v_pad, ry, ru, rv, ivy, ivx, S=B, qp=qp,
                       qp_c=qp_c, lam=lam, search=search,
                       me_precision=me_precision, sign_hiding=sign_hiding,
-                      kernels=kernels)
-    mvs = torch.stack([e["mvx"], e["mvy"]], -1).to(I32)
-    ly16 = e["lev_y"].to(torch.int16)
-    lu16 = e["lev_u"].to(torch.int16)
-    lv16 = e["lev_v"].to(torch.int16)
+                      kernels=kernels, top_mv=top_mv)
+    u8 = torch.uint8
+    return dict(fixed_result(torch.stack([e["mvx"], e["mvy"]], -1),
+                             best_cost, e["lev_y"], e["lev_u"], e["lev_v"],
+                             to_plane(e["rec_y"]).to(u8),
+                             to_plane(e["rec_u"]).to(u8),
+                             to_plane(e["rec_v"]).to(u8)),
+                amvp=e["amvp"])
+
+
+def fixed_result(mvs, best_cost, lev_y, lev_u, lev_v, recon_y, recon_u,
+                 recon_v) -> dict:
+    """The fixed-CU P stage's result from its block outputs (block rows
+    first: MVs, best integer costs, levels per block) and uint8
+    reconstructions, with the one-buffer host wire."""
+    mvs = mvs.to(I32)
+    ly16 = lev_y.to(torch.int16)
+    lu16 = lev_u.to(torch.int16)
+    lv16 = lev_v.to(torch.int16)
     best_cost = best_cost.to(I32)
     meta = torch.cat([mvs.reshape(-1), best_cost.reshape(-1)])
-    u8 = torch.uint8
     return dict(
         mvs=mvs,
         sad=best_cost,            # best integer ME cost (scene-cut signal)
@@ -426,9 +453,7 @@ def _p_stage_tail(cur, u_pad, v_pad, ry, ru, rv, ivy, ivx, best_cost, *,
         # then the int32 MVs and costs bitcast to int16 pairs
         wire=torch.cat([ly16.reshape(-1), lu16.reshape(-1), lv16.reshape(-1),
                         meta.view(torch.int16)]),
-        recon_y=to_plane(e["rec_y"]).to(u8),
-        recon_u=to_plane(e["rec_u"]).to(u8),
-        recon_v=to_plane(e["rec_v"]).to(u8),
+        recon_y=recon_y, recon_u=recon_u, recon_v=recon_v,
     )
 
 
@@ -985,13 +1010,16 @@ def p_frame_device(y_pad, u_pad, v_pad, ref_y, ref_u, ref_v, *, B: int, qp,
     result = _p_stage(y_pad, u_pad, v_pad, ry, ru, rv, B=B, qp=qp,
                       search=search, me_precision=me_precision,
                       sign_hiding=sign_hiding, kernels=kernels)
-    if deblock:
-        rec = tuple(result[k].to(I32)
-                    for k in ("recon_y", "recon_u", "recon_v"))
-        fy, fu, fv = inter_deblock(rec, result["mvs"], result["lev_y"], qp, B)
-        result["ref_y"] = fy.to(torch.uint8)
-        result["ref_u"] = fu.to(torch.uint8)
-        result["ref_v"] = fv.to(torch.uint8)
+    return with_loop_filter(result, qp, B) if deblock else result
+
+
+def with_loop_filter(result: dict, qp, B: int) -> dict:
+    """Add the loop-filtered planes ref_* to a fixed-CU P stage's result."""
+    rec = tuple(result[k].to(I32) for k in ("recon_y", "recon_u", "recon_v"))
+    fy, fu, fv = inter_deblock(rec, result["mvs"], result["lev_y"], qp, B)
+    result["ref_y"] = fy.to(torch.uint8)
+    result["ref_u"] = fu.to(torch.uint8)
+    result["ref_v"] = fv.to(torch.uint8)
     return result
 
 

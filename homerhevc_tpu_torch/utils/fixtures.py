@@ -36,8 +36,21 @@ alone in FAST at 128x96, VBR in FASTEST, CBR with scene cuts at 120x88
 (synth_clip(1280, 720, 17, seed=0), chunk 8, 400 kbps). DECODER_RUNS are
 CBR runs of the CTU-64 quadtree path, which the JAX package cannot code:
 they are held to libde265 alone.
+Multi-device (`plain_kwargs`: EncoderConfig's defaults at cu_size 32, the
+configurations of the JAX package's tests/test_multichip.py and
+tests/test_multihost.py): runs with `mesh` = n go through a session with a
+band mesh of n devices (in the JAX package a jax Mesh of n of the test
+conftest's 8 virtual CPU devices; in the port ["cpu"] * n), the
+`mesh_wpp_shards_small` run through wpp_shards = 4; the tool records them
+from the JAX session with and without its mesh, asserting the two equal.
+Runs with `per_frame` go through encode_frame frame by frame. The `mh_*`
+runs are the single-process streams the two-process GopPipeline must write.
 INTRA_CASES are single frames (`intra_frame`) through the split-RDO IDR
 stage alone; the fixture holds a SHA-256 per output array for them.
+SHARDED_CASES are single P steps of the band-sharded stage
+(parallel/sharded.make_p_frame_sharded) on synth_clip frames; the fixture
+holds per output a SHA-256 of the JAX package's sharded step and of its
+single-device stage, lane by lane.
 CLI_RUNS go through the JAX package's CLI (homer_app.py) and the port's
 (app.py) on the same .yuv file and flags; the fixture's "cli" entry holds
 what cli_record reads off the JAX CLI's outputs.
@@ -191,6 +204,41 @@ RUNS = {
                                    chunk=8, config="ctu64",
                                    over=dict(intra_period=1, rd_mode="FAST",
                                              sample_adaptive_offset=False)),
+    # a band mesh of 4 (tests/test_multichip.py's configurations, then an
+    # uneven cut: 5 CTU rows in bands of 2, 1, 1, 1; CTU 64: 3 rows in 3
+    # bands; IBP: anchors and the explicit P frames in bands)
+    "mesh_fastest_small": dict(width=160, height=128, frames=4, seed=0,
+                               chunk=3, per_frame=True, mesh=4,
+                               config="plain", over=dict(
+                                   me_search_range=8,
+                                   performance_mode="FASTEST_COMPUTATION")),
+    "mesh_fast_small": dict(width=160, height=128, frames=4, seed=0, chunk=3,
+                            per_frame=True, mesh=4, config="plain",
+                            over=dict(me_search_range=8)),
+    "mesh_fast_chunk_small": dict(width=160, height=128, frames=7, seed=1,
+                                  chunk=3, mesh=4, config="plain",
+                                  over=dict(me_search_range=8)),
+    "mesh_wpp_shards_small": dict(width=128, height=96, frames=3, seed=2,
+                                  chunk=3, per_frame=True, config="plain",
+                                  over=dict(me_search_range=8, wpp_shards=4)),
+    "mesh_uneven_small": dict(width=160, height=160, frames=6, seed=3,
+                              chunk=3, mesh=4, config="plain", over=dict(
+                                  me_search_range=8,
+                                  performance_mode="FASTEST_COMPUTATION")),
+    "mesh_ctu64_small": dict(width=128, height=192, frames=4, seed=3,
+                             chunk=3, per_frame=True, mesh=4, config="plain",
+                             over=dict(cu_size=64,
+                                       performance_mode="FASTEST_COMPUTATION")),
+    "mesh_ibp_small": dict(width=128, height=96, frames=6, seed=3, chunk=3,
+                           push=True, mesh=4, config="plain", over=dict(
+                               performance_mode="FASTEST_COMPUTATION",
+                               gop_size=2)),
+    # the two-process GopPipeline's streams (span 4; the IDR at POC 6 falls
+    # inside the second span)
+    **{f"mh_ip{ip}_small": dict(width=128, height=64, frames=8, seed=3,
+                                chunk=3, per_frame=True, config="plain",
+                                over=dict(qp=30, intra_period=ip))
+       for ip in (0, 6)},
 }
 
 # Runs the JAX package cannot code (it raises TypeError building the
@@ -242,6 +290,37 @@ CLI_RUNS = {
               "16", "-bitrate_mode", "1", "-bitrate", "1250", "-rd", "2",
               "-sao", "1", "-sign_hiding", "1", "-metrics", "-profiling")),
 }
+
+# single P steps of the band-sharded stage: a (lanes, bands) mesh, the
+# frames (height x width) of synth_clip(width, height, frame + 1, seed) per
+# lane (frame `frame` against frame - 1), QP 32, quarter-pel. "dryrun" is
+# the JAX package's own dryrun; "b32_s64" takes the hierarchical search
+# (bands of 96 rows, halo 72); in "merge_top" the JAX package's sharded step
+# differs from its single-device stage (a band's first block row gets no
+# merge candidate from the block row above)
+SHARDED_CASES = {
+    "dryrun": dict(lanes=2, bands=4, height=128, width=64, B=16, search=8,
+                   seeds=(0, 1), frame=1),
+    "b32_s16": dict(lanes=2, bands=2, height=128, width=128, B=32,
+                    search=16, seeds=(3, 4), frame=1),
+    "b32_s64": dict(lanes=2, bands=2, height=192, width=128, B=32,
+                    search=64, seeds=(3, 4), frame=1),
+    "merge_top": dict(lanes=1, bands=4, height=64, width=128, B=16, search=8,
+                      seeds=(0,), frame=1),
+}
+SHARDED_KEYS = ("mvs", "lev_y", "lev_u", "lev_v", "recon_y", "recon_u",
+                "recon_v")
+
+
+def sharded_frames(name: str):
+    """(current, reference) planes of one of SHARDED_CASES: two lists of
+    three (lanes, h, w) uint8 arrays (chroma (lanes, h/2, w/2))."""
+    c = SHARDED_CASES[name]
+    clips = [list(synth_clip(c["width"], c["height"], c["frame"] + 1,
+                             seed=s)) for s in c["seeds"]]
+    return tuple([np.stack([cl[f][i] for cl in clips]) for i in range(3)]
+                 for f in (c["frame"], c["frame"] - 1))
+
 
 # single frames through encode_frame_intra(split_rdo=True): (width, height,
 # tu_depth), the frame is intra_frame(width, height, seed=5)
@@ -295,8 +374,17 @@ def full_kwargs(width: int, height: int, **over) -> dict:
         "performance_mode": "FULL_COMPUTATION", **over})
 
 
+def plain_kwargs(width: int, height: int, **over) -> dict:
+    """Keywords of EncoderConfig's defaults at cu_size 32 (FAST_COMPUTATION,
+    search 16, QP 32), with `over` replacing single settings."""
+    kw = dict(width=width, height=height, cu_size=32,
+              performance_mode="FAST_COMPUTATION")
+    kw.update(over)
+    return kw
+
+
 _KWARGS = {None: slice_kwargs, "fast": fast_kwargs, "ctu64": ctu64_kwargs,
-           "full": full_kwargs}
+           "full": full_kwargs, "plain": plain_kwargs}
 
 
 def run_spec(name: str) -> dict:
@@ -393,9 +481,12 @@ def au_digest(aus) -> list:
 def encode_run(enc, name: str) -> list:
     """AUs of one of RUNS through an encoder session of either package:
     frame by frame through push_frame and then flush where the run says
-    "push", else through encode_frames in chunks of its "chunk"."""
+    "push", through encode_frame where it says "per_frame", else through
+    encode_frames in chunks of its "chunk"."""
     r = run_spec(name)
     frames = clip(name)
+    if r.get("per_frame"):
+        return [enc.encode_frame(*f) for f in frames]
     if not r.get("push"):
         return enc.encode_frames(frames, chunk=r["chunk"])
     aus = []

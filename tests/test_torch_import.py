@@ -49,6 +49,9 @@ PORT_MODULES = [
     "homerhevc_tpu_torch.pipeline.b_golden",
     "homerhevc_tpu_torch.pipeline.b_torch",
     "homerhevc_tpu_torch.pipeline.assemble",
+    "homerhevc_tpu_torch.parallel",
+    "homerhevc_tpu_torch.parallel.sharded",
+    "homerhevc_tpu_torch.parallel.multihost",
     "homerhevc_tpu_torch.utils.synth",
     "homerhevc_tpu_torch.utils.fixtures",
     "homerhevc_tpu_torch.utils.yuv",

@@ -239,7 +239,8 @@ def test_level_encode_row_qp(S, search):
         qp=i32(qp), qp_c=i32(qp_c), lam=i32(lam), search=search,
         me_precision=2, sign_hiding=True, tr_split=True,
         qp_rows=torch.as_tensor(rows), vis=vis)
-    assert set(want) == set(got)
+    # the port adds each block's refined MV before the merge decision
+    assert set(got) == set(want) | {"amvp"}
     for k in want:
         eq(want[k], got[k], k)
     # the rows' QPs show in the levels: the finest row codes the most

@@ -241,8 +241,14 @@ def test_cu16_raises(mode):
 ])
 def test_out_of_slice_settings_raise(field, value):
     # every rd_mode is ported, and B frames at cu_size 32: those are
-    # admitted here, and B frames raise at cu_size 64
+    # admitted here, and B frames raise at cu_size 64; wpp_shards is
+    # admitted (a CPU session builds no mesh: it has no CUDA devices)
     cfg = dataclasses.replace(fx.fast_config(128, 96), **{field: value})
+    if field == "wpp_shards":
+        enc = HomerEncoder(cfg, device="cpu")
+        assert enc._mesh is None
+        enc.close()
+        return
     if field in ("rd_mode", "gop_size"):
         HomerEncoder(cfg, device="cpu").close()
         if field == "rd_mode":

@@ -208,7 +208,8 @@ def test_level_encode(S, tr_split):
         qp_c=torch.tensor(qp_c, dtype=torch.int32),
         lam=torch.tensor(lam, dtype=torch.int32), search=64, me_precision=2,
         sign_hiding=True, tr_split=tr_split, vis=VIS)
-    assert set(want) == set(got)
+    # the port adds each block's refined MV before the merge decision
+    assert set(got) == set(want) | {"amvp"}
     for k in want:
         _eq(want[k], got[k], k)
     # the padding carries no residual

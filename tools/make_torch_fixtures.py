@@ -25,7 +25,12 @@ fixture. A run marked "push" in RUNS goes through push_frame and flush.
 A run of CLI_RUNS goes through the JAX package's CLI (homer_app.main) on
 the clip written to a .yuv file; its entry under "cli" holds the digests of
 the .265 and -o-raw files, the printed lines without timings, and the
-libde265 check of the .265 against the -o-raw file.
+libde265 check of the .265 against the -o-raw file. A run with a band mesh
+(`mesh` or wpp_shards in RUNS) is coded by the JAX session with its mesh and
+without, and the two must be equal. A case of SHARDED_CASES goes through
+the JAX package's make_p_frame_sharded and its single-device stage; its
+entry under "sharded" holds the SHA-256 of each output of both. The tool
+gives JAX 8 virtual CPU devices, as tests/conftest.py does.
 """
 
 from __future__ import annotations
@@ -68,16 +73,83 @@ def jax_encode(kw: dict, frames, chunk: int) -> list:
         enc.close()
 
 
+def jax_mesh(n: int):
+    """A jax Mesh of the first n devices on one 'band' axis."""
+    import jax
+    import numpy as np
+    from jax.sharding import Mesh
+    devs = jax.devices()[:n]
+    if len(devs) < n:
+        raise RuntimeError(f"a mesh of {n} needs {n} JAX devices, there are "
+                           f"{len(devs)}")
+    return Mesh(np.array(devs), ("band",))
+
+
 def jax_run(name: str) -> list:
-    """AUs of the JAX package for one of the port's RUNS."""
+    """AUs of the JAX package for one of the port's RUNS; a run with a band
+    mesh (`mesh`, or wpp_shards > 1) is coded with the mesh and without, and
+    the two must be equal."""
     from homerhevc_tpu.api import HomerEncoder
-    from homerhevc_tpu_torch.utils.fixtures import encode_run, run_kwargs
-    enc = HomerEncoder(jax_config_from(run_kwargs(name)), backend="jax",
-                       fetch_recon=False)
-    try:
-        return encode_run(enc, name)
-    finally:
-        enc.close()
+    from homerhevc_tpu_torch.utils.fixtures import (encode_run, run_kwargs,
+                                                    run_spec)
+
+    def session(kw, mesh):
+        enc = HomerEncoder(jax_config_from(kw), backend="jax",
+                           fetch_recon=False, mesh=mesh)
+        try:
+            return encode_run(enc, name), enc._mesh is not None
+        finally:
+            enc.close()
+
+    kw = run_kwargs(name)
+    n = run_spec(name).get("mesh")
+    aus, meshed = session(kw, jax_mesh(n) if n else None)
+    if n or kw.get("wpp_shards", 1) > 1:
+        if not meshed:
+            raise AssertionError(f"{name}: the JAX session built no mesh")
+        single, _ = session(dict(kw, wpp_shards=1), None)
+        if single != aus:
+            raise AssertionError(f"{name}: the JAX session's AUs differ with "
+                                 "and without its mesh")
+    return aus
+
+
+def jax_sharded_case(name: str) -> dict:
+    """SHA-256 per output of the JAX package's make_p_frame_sharded step on
+    a (lanes, bands) mesh and of its single-device p_frame_device, lane by
+    lane, for one of the port's SHARDED_CASES."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from jax.sharding import Mesh, NamedSharding
+    from jax.sharding import PartitionSpec as P
+
+    from homerhevc_tpu.parallel.sharded import make_p_frame_sharded
+    from homerhevc_tpu.pipeline.p_jax import p_frame_device
+    from homerhevc_tpu_torch.utils.fixtures import (SHARDED_CASES,
+                                                    SHARDED_KEYS,
+                                                    array_digest,
+                                                    sharded_frames)
+    c = SHARDED_CASES[name]
+    G, nb = c["lanes"], c["bands"]
+    mesh = Mesh(np.array(jax.devices()[:G * nb]).reshape(G, nb),
+                ("gop", "band"))
+    cur, ref = sharded_frames(name)
+    gb = NamedSharding(mesh, P("gop", "band"))
+    args = [jax.device_put(jnp.asarray(a), gb) for a in cur + ref]
+    qp = jax.device_put(jnp.full((G,), 32, jnp.int32),
+                        NamedSharding(mesh, P("gop")))
+    step = make_p_frame_sharded(mesh, B=c["B"], search=c["search"],
+                                me_precision=2)
+    out = step(*args, qp)
+    single = [p_frame_device(*(jnp.asarray(p[g]) for p in cur + ref),
+                             B=c["B"], qp=32, search=c["search"],
+                             me_precision=2) for g in range(G)]
+    return dict(
+        c, seeds=list(c["seeds"]),
+        sharded={k: array_digest(o) for k, o in zip(SHARDED_KEYS, out)},
+        single={k: array_digest(np.stack([np.asarray(s[k]) for s in single]))
+                for k in SHARDED_KEYS})
 
 
 def jax_intra_case(name: str) -> dict:
@@ -130,21 +202,24 @@ def jax_cli(name: str) -> dict:
 
 
 def _write(path: str, out: dict) -> None:
-    from homerhevc_tpu_torch.utils.fixtures import CLI_RUNS, INTRA_CASES, RUNS
+    from homerhevc_tpu_torch.utils.fixtures import (CLI_RUNS, INTRA_CASES,
+                                                    RUNS, SHARDED_CASES)
     intra = out.pop("intra_split", {})
     cli = out.pop("cli", {})
+    shard = out.pop("sharded", {})
     out = {name: out[name] for name in RUNS if name in out}
     out["intra_split"] = {n: intra[n] for n in INTRA_CASES if n in intra}
     out["cli"] = {n: cli[n] for n in CLI_RUNS if n in cli}
+    out["sharded"] = {n: shard[n] for n in SHARDED_CASES if n in shard}
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
         json.dump(out, f, indent=1)
         f.write("\n")
     print(f"wrote {path}: " + ", ".join(
         f"{k} {len(v['aus'])} AUs" for k, v in out.items()
-        if k not in ("intra_split", "cli"))
+        if k not in ("intra_split", "cli", "sharded"))
         + f", intra_split {len(out['intra_split'])} cases, cli "
-        f"{len(out['cli'])} runs")
+        f"{len(out['cli'])} runs, sharded {len(out['sharded'])} cases")
 
 
 def merge(paths) -> int:
@@ -156,6 +231,7 @@ def merge(paths) -> int:
             part = json.load(f)
         out.setdefault("intra_split", {}).update(part.pop("intra_split", {}))
         out.setdefault("cli", {}).update(part.pop("cli", {}))
+        out.setdefault("sharded", {}).update(part.pop("sharded", {}))
         out.update(part)
     _write(OUT, out)
     return 0
@@ -163,13 +239,15 @@ def merge(paths) -> int:
 
 def main(argv) -> int:
     from homerhevc_tpu_torch.utils.fixtures import (CLI_RUNS, INTRA_CASES,
-                                                    RUNS, au_digest)
+                                                    RUNS, SHARDED_CASES,
+                                                    au_digest)
     if argv[:1] == ["--merge"]:
         return merge(argv[1:])
     path = OUT
     if argv[:1] == ["--out"]:
         path, argv = argv[1], argv[2:]
-    known = list(RUNS) + list(INTRA_CASES) + list(CLI_RUNS)
+    known = (list(RUNS) + list(INTRA_CASES) + list(CLI_RUNS)
+             + list(SHARDED_CASES))
     names = argv or known
     unknown = [n for n in names if n not in known]
     if unknown:
@@ -181,21 +259,29 @@ def main(argv) -> int:
             out = json.load(f)
     intra = out.pop("intra_split", {})
     cli = out.pop("cli", {})
+    shard = out.pop("sharded", {})
     for name in names:
         if name in RUNS:
             out[name] = dict(RUNS[name], aus=au_digest(jax_run(name)))
         elif name in CLI_RUNS:
             cli[name] = jax_cli(name)
+        elif name in SHARDED_CASES:
+            shard[name] = jax_sharded_case(name)
         else:
             intra[name] = dict(INTRA_CASES[name],
                                arrays=jax_intra_case(name))
         print(f"{name}: done", flush=True)
     out["intra_split"] = intra
     out["cli"] = cli
+    out["sharded"] = shard
     _write(path, out)
     return 0
 
 
 if __name__ == "__main__":
+    flags = os.environ.get("XLA_FLAGS", "")
+    if "xla_force_host_platform_device_count" not in flags:
+        os.environ["XLA_FLAGS"] = (
+            flags + " --xla_force_host_platform_device_count=8").strip()
     sys.path.insert(0, ROOT)
     sys.exit(main(sys.argv[1:]))
