@@ -21,12 +21,16 @@ Phases, each of which raises on failure (non-zero exit, no result line):
                pair at CU 8 (G 14, 17, 7), 16 (22, 25, 11), 32 (38, 41, 19)
                and 64 (70, 73, 35); at 1088x1920 (1080p, nb 2,040), me_sad
                at B 32, S 16 and the fixed-CU gathers (G 41, 19) on the
-               1080p clip's first two frames. Then times from CUDA graph
-               replays at the 720p and 1080p call sites: kernel, plain
-               version, an empty kernel
-               of the same grid (floor_ms), one PyTorch indexing call for
-               the same gather (library_ms), gather_win's generic (any-G)
-               kernel (generic_ms), and the bound computed from the shapes
+               1080p clip's first two frames; every gather site also on
+               its first nb - 3 and first 5 windows (a ragged tail of the
+               span path), and where the launcher takes the span path (G
+               7, 11, 14, 17), the window path on the same data. Then times
+               from CUDA graph replays at the 720p and 1080p call sites:
+               kernel, plain version, an empty kernel of the same grid
+               (floor_ms), one PyTorch indexing call for the same gather
+               (library_ms), gather_win's window path (earlier_ms) and its
+               empty grid (earlier_floor_ms), its generic (any-G) kernel
+               (generic_ms), and the bound computed from the shapes
                and, for the gather, the starts: each distinct plane sample
                that a window covers read once (windows overlap), each
                window written once; then the band stage's sites (BAND_STEPS,
@@ -380,11 +384,50 @@ def fast_gather_sites(dev, cur_frame, ref_frame, H, W, search,
     return sites
 
 
+def gather_entry(symbol, plane, by, bx, G, *extra):
+    """Launch another entry of gather_win.cu that takes the launcher's
+    arguments (and `extra` ints before the stream) at one site, into a new
+    (P, nb, G, G) output; a yardstick, not counted as a launch."""
+    import ctypes
+
+    import torch
+
+    from homerhevc_tpu_torch.ops import gather
+
+    planes = plane if isinstance(plane, tuple) else (plane,)
+    dev = planes[0].device
+    out = torch.empty((len(planes), by.shape[0], G, G), dtype=torch.int16,
+                      device=dev)
+    ptrs = [p.data_ptr() for p in planes] + [None] * (
+        gather.MAX_PLANES - len(planes))
+    argtypes = gather.GATHER_WIN.argtypes
+    argtypes = argtypes[:-1] + [ctypes.c_int] * len(extra) + argtypes[-1:]
+    gather.GATHER_WIN.launch_other(
+        symbol, *ptrs, len(planes), by.data_ptr(), bx.data_ptr(),
+        out.data_ptr(), by.shape[0], *planes[0].shape, G, *extra,
+        torch.cuda.current_stream(dev).cuda_stream, argtypes=argtypes)
+    return out
+
+
+def span_width(G: int) -> int:
+    """Windows per CTA of gather_win's span path at G (0: the window
+    path), as the launcher chooses them."""
+    import ctypes
+
+    from homerhevc_tpu_torch.ops import gather
+    return gather.GATHER_WIN.entry("gather_win_span_width",
+                                   [ctypes.c_int])(G)
+
+
 def check_gather(dev, sites, label):
-    """gather_win == plain at every call site of `sites`, on real starts
-    and on random data with planted out-of-range starts, from int16 planes
-    through the kernel's launcher and from uint8 planes through the wrapper;
-    returns the largest absolute difference seen (0, or the check raises)."""
+    """gather_win == plain at every call site of `sites`, on real starts,
+    on random data with planted out-of-range starts, and on the first
+    nb - 3 and the first 5 windows of both (a ragged tail: P * nb not a
+    multiple of 8), from int16 planes through the kernel's launcher and
+    from uint8 planes through the wrapper; where the launcher takes the span
+    path, the window path (gather_win_window_launch) is held to the
+    same data. Returns the largest absolute difference seen (0, or the
+    check raises)."""
     import numpy as np
     import torch
 
@@ -395,6 +438,7 @@ def check_gather(dev, sites, label):
     for name, (plane, by, bx, G) in sites.items():
         first = plane[0] if isinstance(plane, tuple) else plane
         Hp, Wp = first.shape
+        by, bx = by.to(torch.int32), bx.to(torch.int32)
 
         def rand_like(p):
             return torch.as_tensor(rng.integers(-300, 300, tuple(p.shape)),
@@ -411,23 +455,36 @@ def check_gather(dev, sites, label):
         rand_bx = bx.clone()
         rand_bx[3:6] = torch.tensor([-3, 10 ** 5, Wp - G], dtype=torch.int32,
                                     device=dev)
-        for kind, (p, yy, xx) in (("real", (plane, by, bx)),
-                                  ("random", (rand_plane, rand_by,
-                                              rand_bx))):
-            a = gather.gather_windows_cuda(p, yy, xx, G)
+        nb = by.shape[0]
+        cases = [("real", (plane, by, bx)),
+                 ("random", (rand_plane, rand_by, rand_bx))]
+        cases += [(f"{kind}, first {n}", (p, yy[:n].contiguous(),
+                                          xx[:n].contiguous()))
+                  for n in (nb - 3, 5) if 0 < n < nb
+                  for kind, (p, yy, xx) in cases[:2]]
+        span = span_width(G)
+        for kind, (p, yy, xx) in cases:
             b = gather.gather_windows_plain(p, yy, xx, G)
+            runs = [("gather_win", gather.gather_windows_cuda(p, yy, xx, G))]
+            if span:
+                runs.append(("window path", gather_entry(
+                    "gather_win_window_launch", p, yy, xx, G).reshape(
+                        b.shape)))
             torch.cuda.synchronize()
-            if a.shape != b.shape:
-                raise AssertionError(f"gather_win shape != plain at {name} "
-                                     f"({kind}, {label})")
-            err = int((a.to(torch.int32) - b.to(torch.int32)).abs().max())
-            if err:
-                raise AssertionError(f"gather_win != plain at {name} "
-                                     f"({kind}, {label}): max abs "
-                                     f"difference {err}")
-            worst = max(worst, err)
+            for what, a in runs:
+                if a.shape != b.shape:
+                    raise AssertionError(f"{what} shape != plain at {name} "
+                                         f"({kind}, {label})")
+                err = int((a.to(torch.int32) - b.to(torch.int32)).abs()
+                          .max())
+                if err:
+                    raise AssertionError(f"{what} != plain at {name} "
+                                         f"({kind}, {label}): max abs "
+                                         f"difference {err}")
+                worst = max(worst, err)
+            path = f"span path, W {span}" if span else "window path"
             log(f"  gather_win == plain at {name} on {kind} data ({label}, "
-                f"plane {Hp}x{Wp}, nb={by.shape[0]})")
+                f"plane {Hp}x{Wp}, nb={yy.shape[0]}, {path})")
         # the wrapper on uint8 planes (it widens them, then launches)
         p8 = (tuple(q.to(torch.uint8) for q in plane)
               if isinstance(plane, tuple) else plane.to(torch.uint8))
@@ -484,29 +541,17 @@ def time_me(dev, cur, ref, mc, H, W, B, S):
 
 
 def time_gather(dev, name, plane, by, bx, G):
-    """Times of gather_win at one call site: kernel, plain version, empty
-    grid, one PyTorch indexing call per plane, the any-G kernel, and the
-    bound (each distinct plane sample the windows cover read once, each
-    window written once)."""
+    """Times of gather_win at one call site: the kernel (the path its
+    launcher takes at G), the window path ("earlier"), the empty grid
+    of each of the two launch shapes, one PyTorch indexing call per plane,
+    the any-G kernel, the plain version, and the bound (each distinct plane
+    sample the windows cover read once, each window written once)."""
     import torch
 
     from homerhevc_tpu_torch.ops import gather
 
     def stream():        # the current stream: a graph capture's own, inside
         return torch.cuda.current_stream(dev).cuda_stream
-
-    def generic(plane, by, bx, G):
-        """The any-G kernel at this site (a yardstick, not counted)."""
-        planes = plane if isinstance(plane, tuple) else (plane,)
-        out = torch.empty((len(planes), by.shape[0], G, G),
-                          dtype=torch.int16, device=dev)
-        ptrs = [p.data_ptr() for p in planes] + [None] * (
-            gather.MAX_PLANES - len(planes))
-        gather.GATHER_WIN.launch_other(
-            "gather_win_generic_launch", *ptrs, len(planes), by.data_ptr(),
-            bx.data_ptr(), out.data_ptr(), by.shape[0], *planes[0].shape, G,
-            stream())
-        return out
 
     nplanes = len(plane) if isinstance(plane, tuple) else 1
     nb = by.shape[0]
@@ -517,30 +562,40 @@ def time_gather(dev, name, plane, by, bx, G):
     # plane; every window written once; the starts read once
     nbytes = (nplanes * 2 * (covered_samples(first.shape, y0, x0, G)
                              + nb * G * G) + 2 * nb * 4)
-    want = gather.gather_windows_plain(plane, by, bx, G)
+    want = gather.gather_windows_plain(plane, by, bx, G).reshape(-1)
     lib = torch.stack(library_gather(plane, y0, x0, G))
-    if not torch.equal(lib.reshape(-1), want.reshape(-1)):
+    if not torch.equal(lib.reshape(-1), want):
         raise AssertionError(f"library gather != plain at {name}")
-    if not torch.equal(generic(plane, by, bx, G).reshape(-1),
-                       want.reshape(-1)):
-        raise AssertionError(f"any-G kernel != plain at {name}")
+    for symbol in ("gather_win_window_launch", "gather_win_generic_launch"):
+        if not torch.equal(gather_entry(symbol, plane, by, bx, G).reshape(-1),
+                           want):
+            raise AssertionError(f"{symbol} != plain at {name}")
+    span = span_width(G)
     t = dict(
         site=name, G=G, nb=nb, planes=nplanes,
+        path=f"span W={span}" if span else "window",
         ms=cuda_ms(lambda: gather.gather_windows_cuda(plane, by, bx, G),
                    100),
+        earlier_ms=cuda_ms(lambda: gather_entry(
+            "gather_win_window_launch", plane, by, bx, G), 100),
         plain_ms=cuda_ms(lambda: gather.gather_windows_plain(
             plane, by, bx, G), 50),
         floor_ms=cuda_ms(lambda: gather.GATHER_WIN.launch_floor(
-            nb, nplanes, stream()), 100),
+            nb, nplanes, G, -1, stream()), 100),
+        earlier_floor_ms=cuda_ms(lambda: gather.GATHER_WIN.launch_floor(
+            nb, nplanes, G, 0, stream()), 100),
         library_ms=cuda_ms(lambda: library_gather(plane, y0, x0, G), 50),
-        generic_ms=cuda_ms(lambda: generic(plane, by, bx, G), 100),
+        generic_ms=cuda_ms(lambda: gather_entry(
+            "gather_win_generic_launch", plane, by, bx, G), 100),
         bound_bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
         bound_by="bytes")
-    log(f"  gather_win {name} (nb {nb}): kernel {t['ms']:.4f} ms, plain "
-        f"{t['plain_ms']:.4f} ms, empty grid {t['floor_ms']:.4f} ms, "
-        f"one indexing call per plane {t['library_ms']:.4f} ms, any-G "
-        f"kernel {t['generic_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-        f"by bytes ({nbytes} B)")
+    log(f"  gather_win {name} (nb {nb}, {t['path']}): kernel "
+        f"{t['ms']:.4f} ms, window path (earlier) {t['earlier_ms']:.4f} ms, "
+        f"empty grid {t['floor_ms']:.4f} ms (window path's "
+        f"{t['earlier_floor_ms']:.4f}), one indexing call per plane "
+        f"{t['library_ms']:.4f} ms, any-G kernel {t['generic_ms']:.4f} ms, "
+        f"plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms by "
+        f"bytes ({nbytes} B)")
     return t
 
 

@@ -117,15 +117,19 @@ class CudaKernel:
         with torch.cuda.device(device):
             self.launch(*args, torch.cuda.current_stream(device).cuda_stream)
 
-    def launch_other(self, symbol: str, *args) -> None:
-        """Launch another entry of the library that takes the launcher's
-        arguments (a yardstick for timing; not counted as a launch of the
-        kernel)."""
+    def entry(self, symbol: str, argtypes=None):
+        """Another C entry of the library, bound with `argtypes` (default:
+        the launcher's) and returning an int."""
         self.load()
         fn = getattr(self._lib, symbol)
-        fn.argtypes = self.argtypes
+        fn.argtypes = self.argtypes if argtypes is None else list(argtypes)
         fn.restype = ctypes.c_int
-        self._check(fn(*args))
+        return fn
+
+    def launch_other(self, symbol: str, *args, argtypes=None) -> None:
+        """Launch another entry of the library (a yardstick for timing; not
+        counted as a launch of the kernel); `argtypes` as for `entry`."""
+        self._check(self.entry(symbol, argtypes)(*args))
 
     def launch_floor(self, *args) -> None:
         """Launch the library's empty kernel of the same grid and CTA size

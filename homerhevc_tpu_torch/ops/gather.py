@@ -23,7 +23,7 @@ _I = ctypes.c_int
 MAX_PLANES = 4
 GATHER_WIN = CudaKernel(
     "gather_win", [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
-    floor_argtypes=[_I, _I, _P])
+    floor_argtypes=[_I, _I, _I, _I, _P])
 
 
 def gather_windows_plain(plane, by: torch.Tensor, bx: torch.Tensor,

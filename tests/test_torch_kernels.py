@@ -90,7 +90,7 @@ def test_integer_me_plain_dtypes_match_pallas(kind, dtype, search):
 # luma G = S+9 with rows/cols from lo = PAD - (search+7), chroma G = S/2+3
 # with lo = PAD/2 - (search/2+3); the hierarchical search's refine window
 # G = S+6 with lo = PAD - (search+3). The fixed-CU stage gathers at S 32,
-# the quadtree stage at S 16 as well.
+# the quadtree stage at S 16 as well, and FULL at S 8.
 SITES = {
     "luma": dict(G=41, S_row=32, mo=8 + 7, pad=PAD, shape=(96, 128)),
     "chroma": dict(G=19, S_row=16, mo=8 // 2 + 3, pad=PAD // 2,
@@ -100,6 +100,11 @@ SITES = {
                      shape=(48, 64)),
     "refine32": dict(G=38, S_row=32, mo=8 + 3, pad=PAD, shape=(96, 128)),
     "refine16": dict(G=22, S_row=16, mo=8 + 3, pad=PAD, shape=(96, 128)),
+    # FULL's 8x8 CUs: luma G 17, the chroma pair G 7, the refine window G 14
+    "luma8": dict(G=17, S_row=8, mo=8 + 7, pad=PAD, shape=(96, 128)),
+    "chroma8": dict(G=7, S_row=4, mo=8 // 2 + 3, pad=PAD // 2,
+                    shape=(48, 64)),
+    "refine8": dict(G=14, S_row=8, mo=8 + 3, pad=PAD, shape=(96, 128)),
 }
 
 

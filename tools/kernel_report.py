@@ -27,6 +27,19 @@ Builds kernels/me_sad.cu and kernels/gather_win.cu, then
     files whose launchers have the first version's signatures: me_sad with
     int16 planes, gather_win with one plane), times those in the same
     process, so old and new are compared on one card in one run.
+
+    python3 tools/kernel_report.py --sweep
+
+only builds kernels/gather_win.cu, prints what `-Xptxas -v` said of it,
+and at each 720p call site whose window is small (G 7-25: the quadtree
+path's CU-8 and CU-16 sites and the CU-32 chroma pair, whether the
+launcher takes the span path there or not) holds the span path
+at every width W it takes, and the span path's other design (variant 3 of
+tools/gather_variants.cu: no shared-memory stage), against the plain
+version (exact), then times, in the order a, b, ..., b, a: the window path,
+its empty grid, the span path, variant 3 and the empty grid of their
+launch shape at each W, and one PyTorch indexing call per plane. That is
+how gather_win.cu's span widths and its span design were chosen.
 Listings and built libraries go to the directory REPORT_DIR names
 (default report_out/, listed in .gitignore). Needs a CUDA device with nvcc
 and cuobjdump; imports no JAX.
@@ -133,9 +146,83 @@ def old_kernels(old_dir: str):
     return fns
 
 
+def gather_sweep(dev) -> None:
+    """The span path of gather_win at every width W it takes, beside the
+    window path, at the 720p small-window sites (see the module's doc)."""
+    import torch
+
+    import chip_smoke as cs
+    from homerhevc_tpu_torch.ops import gather
+    from homerhevc_tpu_torch.utils.fixtures import clip
+
+    def stream():        # the current stream: a graph capture's own, inside
+        return torch.cuda.current_stream(dev).cuda_stream
+
+    P_, I_ = ctypes.c_void_p, ctypes.c_int
+    direct_fn = ctypes.CDLL(build_so(
+        os.path.join(ROOT, "tools", "gather_variants.cu"),
+        "gather_variants.so")).gather_span_direct_launch
+    direct_fn.argtypes = [P_] * 4 + [I_, P_, P_, P_] + [I_] * 5 + [P_]
+    direct_fn.restype = I_
+
+    def direct(plane, by, bx, G, w):
+        planes = plane if isinstance(plane, tuple) else (plane,)
+        out = torch.empty((len(planes), by.shape[0], G, G),
+                          dtype=torch.int16, device=dev)
+        ptrs = [p.data_ptr() for p in planes] + [None] * (4 - len(planes))
+        rc = direct_fn(*ptrs, len(planes), by.data_ptr(), bx.data_ptr(),
+                       out.data_ptr(), by.shape[0], *planes[0].shape, G, w,
+                       stream())
+        assert rc == 0, rc
+        return out
+
+    frames = clip("720p")
+    sites = {}
+    for H, sizes in ((768, (8,)), (736, (16, 32))):
+        for name, site in cs.fast_gather_sites(dev, frames[1], frames[0], H,
+                                               1280, 64, sizes).items():
+            if site[3] <= 25:     # the G with a span-path instance
+                sites[f"{H}x1280 {name}"] = site
+    for name, (plane, by, bx, G) in sites.items():
+        by, bx = by.to(torch.int32), bx.to(torch.int32)
+        nb = by.shape[0]
+        P = len(plane) if isinstance(plane, tuple) else 1
+        want = gather.gather_windows_plain(plane, by, bx, G).reshape(-1)
+        # every W the span kernel takes: a multiple of 8, at most 4 chunks
+        # of 8 samples a thread of 256
+        widths = [w for w in range(8, 257, 8) if w * G * G <= 4 * 8 * 256]
+        runs = [("window path", lambda: cs.gather_entry(
+                    "gather_win_window_launch", plane, by, bx, G)),
+                ("window path, empty grid",
+                 lambda: gather.GATHER_WIN.launch_floor(nb, P, G, 0,
+                                                        stream()))]
+        for w in widths:
+            got = cs.gather_entry("gather_win_span_launch", plane, by, bx, G,
+                                  w)
+            assert torch.equal(got.reshape(-1), want), (name, w)
+            got = direct(plane, by, bx, G, w)
+            assert torch.equal(got.reshape(-1), want), (name, w, "direct")
+            runs.append((f"span W {w} ({-(-nb * P // w)} CTAs)",
+                         lambda w=w: cs.gather_entry(
+                             "gather_win_span_launch", plane, by, bx, G, w)))
+            runs.append((f"span W {w}, direct (variant 3)",
+                         lambda w=w: direct(plane, by, bx, G, w)))
+            runs.append((f"span W {w}, empty grid",
+                         lambda w=w: gather.GATHER_WIN.launch_floor(
+                             nb, P, G, w, stream())))
+        y0, x0 = cs.clamped_starts(plane, by, bx, G)
+        runs.append(("one indexing call per plane",
+                     lambda: cs.library_gather(plane, y0, x0, G)))
+        print(f"gather_win {name} (G {G}, nb {nb} x {P}; the launcher takes "
+              f"W {cs.span_width(G)}; ms per call, 100 calls):")
+        for label, fn in runs + runs[::-1]:
+            print(f"  {label}: {cs.cuda_ms(fn, 100):.4f}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--old", default=None)
+    ap.add_argument("--sweep", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     import torch
@@ -150,6 +237,11 @@ def main() -> int:
     dev = require_cuda()
     print(f"card: {cs.card_line()}; max SM clock "
           f"{cs.max_sm_hz() / 1e6:.0f} MHz")
+    if args.sweep:
+        lib = build.build_library("gather_win")
+        print(build.ptxas_log(lib).read_text())
+        gather_sweep(dev)
+        return 0
     names = ("me_sad", "gather_win")
     for name, lib in zip(names, build.build_all(names)):
         print(f"== {name}: {lib.name}")
@@ -246,7 +338,7 @@ def main() -> int:
 
         assert torch.equal(gather.gather_windows_cuda(plane, by, bx, G),
                            ref_out), name
-        runs = [("shipped kernel (a thread per sample)",
+        runs = [("shipped kernel (gather_win_launch's path at this G)",
                  lambda: gather.gather_windows_cuda(plane, by, bx, G))]
         for which, vname in ((1, "rows (a warp per row, 4-byte stores)"),
                              (2, "staged (shared memory, 16-byte stores)")):
@@ -256,7 +348,7 @@ def main() -> int:
                 (name, vname)
             runs.append((vname, lambda which=which: other(which)))
         runs.append(("empty grid", lambda: gather.GATHER_WIN.launch_floor(
-            by.shape[0], len(planes), stream())))
+            by.shape[0], len(planes), G, -1, stream())))
         y0, x0 = cs.clamped_starts(plane, by, bx, G)
         runs.append(("one indexing call per plane",
                      lambda: cs.library_gather(plane, y0, x0, G)))
