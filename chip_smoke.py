@@ -33,11 +33,15 @@ Phases, each of which raises on failure (non-zero exit, no result line):
                (generic_ms), and the bound computed from the shapes
                and, for the gather, the starts: each distinct plane sample
                that a window covers read once (windows overlap), each
-               window written once; then the band stage's sites (BAND_STEPS,
-               recorded from one run of each step): me_sad on a 192x1280
-               band at B 64, the gathers G 73 and the G 35 pair on 720p
-               bands, the refine window G 38, G 41 and the G 19 pair on
-               544-row 1080p bands (search 64)
+               window written once; then the band stages' sites
+               (BAND_STEPS and TREE_BAND_STEPS, recorded from one run of
+               each step): me_sad on a 192x1280 band at B 64, the gathers G
+               73 and the G 35 pair on 720p bands, the refine window G 38,
+               G 41 and the G 19 pair on 544-row 1080p bands (search 64);
+               the quadtree's on 720p bands: at CTU 64 (192 rows) G 25 and
+               41 and the G 11 and 19 pairs, at CTU 32 with search 64 (192
+               and 160 rows) the refine windows G 22 and 38, G 25 and 41,
+               and the G 11 and 19 pairs
   4. paths   — each main path through HomerEncoder(cfg).encode_frames on
                the default device, with the launch counts set to 0 just
                before it and read just after (launches per P frame):
@@ -98,10 +102,19 @@ Phases, each of which raises on failure (non-zero exit, no result line):
                lanes x 4 bands; 1080p at B 32 with search 64, 2 bands),
                every output equal to p_frame_device with and without the
                kernels, launches asserted, the step timed against the
-               single-device stage; fastest_720p and fastest64_720p again
+               single-device stage; the quadtree stage with its deblocking
+               in bands (p_frame_tree_bands; TREE_BAND_STEPS: default_720p's
+               settings in 4 bands of 3 CTU rows, fast_720p's in bands of
+               6, 6, 6, 5) against p_frame_tree_device on every output,
+               with and without the kernels, gather_win 6 per band, timed
+               against the single-device stage; fastest_720p,
+               fastest64_720p, fast_720p, default_720p and full64_720p again
                with mesh=[card] * 4 (bands of 6, 6, 6, 5 and 3, 3, 3, 3 CTU
-               rows; me_sad 4 and gather_win 8 per P frame) against the
-               fixture, with and without the kernels, and their small clips;
+               rows; the stage, deblocking and SAO of every P frame in
+               bands; launches per P frame the path's times 4; the
+               quadtree paths from their phase-4 IDR planes) against the
+               fixture, with and without the kernels, and their small
+               clips;
                8 P frames on one device and on the mesh, in turns;
                wpp_shards=4 on one card (no mesh, the same AUs); the
                GopPipeline in two child processes (this script with
@@ -758,14 +771,15 @@ IBP_PATHS = {
 }
 
 
-def run_path(dev, name, fixture, seeds, mesh=None):
+def run_path(dev, name, fixture, seeds, mesh=None, idr=None):
     """One main path at 720p through the session's entry points on the
     default device; returns its launch counts and the reference planes
     behind its IDR (numpy). The comparison and timing sessions continue
     from those planes (seed_reference) without coding the IDR again here:
     no kernel runs in an IDR, and the split-RDO IDR takes most of a minute.
-    A path with a `seed` starts from `seeds[seed]`. With a `mesh` (a list of
-    devices) the sessions run their fixed-CU P stages in its bands: the
+    A path with a `seed` starts from `seeds[seed]`, and one given `idr`
+    (its own IDR's planes, from an earlier run) from those. With a `mesh`
+    (a list of devices) the sessions run their P frames in its bands: the
     launches per P frame are the path's times the number of bands."""
     import copy
 
@@ -778,6 +792,7 @@ def run_path(dev, name, fixture, seeds, mesh=None):
     from homerhevc_tpu_torch.utils import fixtures as fx
 
     path = PATHS[name]
+    path_name = name
     run = fx.RUNS[path["run"]]
     n = path["frames"]
     frames = fx.clip(path["run"])[:n]
@@ -801,6 +816,8 @@ def run_path(dev, name, fixture, seeds, mesh=None):
     if seed and want[0] != fixture[PATHS[seed]["run"]]["aus"][0]:
         raise AssertionError(f"{name}: the fixture's IDR differs from "
                              f"{seed}'s: cannot continue from its planes")
+    ref0 = seeds[seed] if seed else idr
+    seeded = ref0 is not None
     kernels = (ME_SAD, GATHER_WIN)
     for k in kernels:
         k.launches = 0
@@ -814,8 +831,7 @@ def run_path(dev, name, fixture, seeds, mesh=None):
         raise AssertionError(f"default device is {enc.device}, not the card")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    if seed:
-        ref0 = seeds[seed]
+    if seeded:
         enc.seed_reference(ref0, poc=1, last_idr=0)
         aus = [None]
         idr_s = None
@@ -833,11 +849,12 @@ def run_path(dev, name, fixture, seeds, mesh=None):
     launches = {k.name: k.launches for k in kernels}
     idr_note = (f"; of it the first IDR through encode_frames, cold, "
                 f"{idr_s:.2f} s" if idr_s else "")
+    from_note = (f" (P frames from {seed or path_name}'s IDR planes)"
+                 if seeded else "")
     log(f"  {name}: {cfg.performance_mode.name}, cu_size {cfg.cu_size}, "
         f"search {cfg.me_search_range}, {n} frames through the kernels"
-        f"{f' (P frames from {seed} IDR planes)' if seed else ''}: "
-        f"{secs:.2f} s (first run, includes warm-up{idr_note}); launches "
-        f"{launches}")
+        f"{from_note}: {secs:.2f} s (first run, includes warm-up"
+        f"{idr_note}); launches {launches}")
     n_p = n - 1
     expect = {k.name: path[k.name] * n_p * bands for k in kernels}
     if launches != expect:
@@ -847,17 +864,17 @@ def run_path(dev, name, fixture, seeds, mesh=None):
         log(f"  {name}: {n_p} P frames end to end in this run: "
             f"{p_secs * 1000:.1f} ms -> {n_p / p_secs:.2f} fps (slice QPs "
             f"issued by rate control: {enc.last_qp} last) on {card_line()}")
-    got = fx.au_digest(aus[1:] if seed else aus)
-    want_c = want[1:] if seed else want
+    got = fx.au_digest(aus[1:] if seeded else aus)
+    want_c = want[1:] if seeded else want
     bad = [i for i, (a, b) in enumerate(zip(got, want_c)) if a != b]
     if len(got) != len(want_c) or bad:
         raise AssertionError(f"{name}: AUs differ from the JAX fixture at "
                              f"{bad} (sizes {[g['len'] for g in got]})")
-    idr_note = "" if seed else f"; IDR {got[0]['len']} bytes"
+    idr_note = "" if seeded else f"; IDR {got[0]['len']} bytes"
     log(f"  {name}: AUs == JAX fixture ({len(got)} AUs, "
         f"{sum(g['len'] for g in got)} bytes{idr_note})")
 
-    if not seed:
+    if not seeded:
         decoded = fx.decode_check(aus,
                                   enc._ref[0].cpu().numpy()[:720, :1280])
         if decoded is None:
@@ -1250,10 +1267,22 @@ BAND_STEPS = {
                                width=1920, B=32, search=64, me_sad=0,
                                gather_win=6),
 }
+# The quadtree stage with its deblocking at full size (phases 3 and 5), on
+# a mesh that names the one card 4 times: frame 1 of the 720p clip against
+# frame 0, edge-padded to the coded size, QP 32, the stage settings of a
+# phase-4 path: default_720p (CTU 64, search 16) in bands of 3 CTU rows
+# (192), fast_720p (CTU 32, search 64, intra-in-P) in bands of 6, 6, 6, 5
+# (192 and 160 rows). Launches: gather_win the path's 6 per band.
+TREE_BAND_STEPS = {
+    "tree_720p_ctu64": dict(path="default_720p", bands=4, gather_win=24),
+    "tree_720p_ctu32_s64": dict(path="fast_720p", bands=4, gather_win=24),
+}
 # the session paths of phase 4 run again on a mesh of the card named 4
-# times: fastest_720p cuts 23 CTU rows into bands of 6, 6, 6, 5, and
-# fastest64_720p 12 into 3, 3, 3, 3
-MESH_PATHS = ("fastest_720p", "fastest64_720p")
+# times: fastest_720p and fast_720p cut 23 CTU rows into bands of 6, 6, 6,
+# 5, the CTU-64 paths 12 into 3, 3, 3, 3; the quadtree paths continue from
+# their IDR planes of phase 4 (full64_720p from default_720p's)
+MESH_PATHS = ("fastest_720p", "fastest64_720p", "fast_720p", "default_720p",
+              "full64_720p")
 MESH_BANDS = 4
 # the two-process GopPipeline: fastest_720p's configuration with an IDR
 # every 6 frames, spans of 4, 9 frames (the IDR at POC 6 falls inside the
@@ -1291,14 +1320,50 @@ def band_step(dev, st, kernels: bool = True):
         me_precision=2, kernels=kernels)
 
 
+def tree_step(dev, name, kernels: bool = True):
+    """A TREE_BAND_STEPS step: (the step in bands, the single-device
+    stage), each a callable that returns p_frame_tree_device's dict
+    (deblocked), and the bands' row counts."""
+    import numpy as np
+    import torch
+
+    from homerhevc_tpu_torch.api import HomerEncoder
+    from homerhevc_tpu_torch.parallel import sharded
+    from homerhevc_tpu_torch.pipeline import p_torch
+    from homerhevc_tpu_torch.utils import fixtures as fx
+
+    st = TREE_BAND_STEPS[name]
+    cfg = fx.run_config(PATHS[st["path"]]["run"])
+    enc = HomerEncoder(cfg, device=dev, kernels=kernels)
+    kw = dict(enc._tree_kwargs(), qp=32, deblock=True)
+    frames = [enc._pad_frame(*f) for f in fx.clip("720p")[:2]]
+    enc.close()
+    cur, ref = ([torch.as_tensor(np.ascontiguousarray(p), device=dev)
+                 for p in f] for f in (frames[1], frames[0]))
+    mesh = [dev] * st["bands"]
+    rows, _ = sharded.band_rows(mesh, cfg.padded_height, cfg.cu_size)
+    return (lambda: sharded.p_frame_tree_bands(mesh, *cur, *ref, **kw),
+            lambda: p_torch.p_frame_tree_device(*cur, *ref, **kw), rows)
+
+
+def gather_site_kind(pair: bool, G: int) -> str:
+    """What a gather_win call gathers, from its window side G: the chroma
+    pair, the hierarchical search's refine window (S + 6) or the luma
+    support window (S + 9)."""
+    return ("chroma pair" if pair else
+            "hier refine" if G - 6 in (8, 16, 32, 64) else "luma")
+
+
 def phase_band_sites(dev, records) -> None:
-    """The kernels at the band stage's call sites: one run of each
-    BAND_STEPS step records the arguments of every distinct kernel call
-    (shapes, B, G); each is held against its plain version (exact) and
-    timed as the other sites are. Adds the sites to `records`."""
+    """The kernels at the band stages' call sites: one run of each
+    BAND_STEPS and TREE_BAND_STEPS step records the arguments of every
+    distinct kernel call (shapes, B, G); each is held against its plain
+    version (exact) and timed as the other sites are. Adds the sites to
+    `records`."""
     import torch
 
     from homerhevc_tpu_torch.ops import gather, me
+    from homerhevc_tpu_torch.pipeline import p_torch
 
     seen = {}
     wrappers = (me.integer_me_cuda, gather.gather_windows_cuda)
@@ -1322,6 +1387,11 @@ def phase_band_sites(dev, records) -> None:
                                                   name)
             cur, ref = band_inputs(dev, st)
             band_step(dev, st)(*cur, *ref, [32] * st["lanes"])
+        for name in TREE_BAND_STEPS:
+            me.integer_me_cuda = recorder("me_sad", wrappers[0], name)
+            gather.gather_windows_cuda = recorder("gather_win", wrappers[1],
+                                                  name)
+            tree_step(dev, name)[0]()
     finally:
         me.integer_me_cuda, gather.gather_windows_cuda = wrappers
     torch.cuda.synchronize()
@@ -1344,17 +1414,22 @@ def phase_band_sites(dev, records) -> None:
             records["me_sad"]["sites"].append(t)
         else:
             plane, by, bx, G = args
-            kind = ("chroma pair" if key[1] else
-                    "hier refine" if G == BAND_STEPS[step]["B"] + 6 else
-                    "luma")
-            label = f"{step}: band {kind} G={G}"
+            rows = (plane[0].shape[0] * 2 if key[1]
+                    else plane.shape[0]) - p_torch.PAD * 2
+            label = (f"{step}: {rows}-row band {gather_site_kind(key[1], G)}"
+                     f" G={G}")
             err = check_gather(dev, {label: (plane, by, bx, G)}, step)
             records["gather_win"]["max_abs_err"] = max(
                 records["gather_win"]["max_abs_err"], err)
             records["gather_win"]["sites"].append(
                 time_gather(dev, label, plane, by, bx, G))
     kinds = sorted(k[0] for k in seen)
-    if kinds != ["gather_win"] * 5 + ["me_sad"]:
+    # the fixed-CU steps' 5 gathers and the quadtree's 6 on each of the
+    # two band heights (192 and 160 rows): the two quadtree steps share
+    # their 192-row sites (plane shape, nb and G; recorded under the first,
+    # the CTU-64 step), whose G 73 and G 35 pair are the fixed-CU 720p
+    # step's
+    if kinds != ["gather_win"] * 17 + ["me_sad"]:
         raise AssertionError(f"band sites recorded: {sorted(seen)}")
 
 
@@ -1409,6 +1484,49 @@ def run_band_steps(dev, card: str) -> dict:
             f"launches {launches}; {band_ms:.1f} ms a step against "
             f"{single_ms:.1f} ms for the single-device stage on the same "
             f"lanes (host clock, best of 3, synchronised) on {card}")
+        out[name] = launches
+    return out
+
+
+def run_tree_band_steps(dev, card: str) -> dict:
+    """Each TREE_BAND_STEPS step on the card with the launch counts set to
+    0 just before it and read just after; every output (unit maps, levels,
+    wire, reconstruction, deblocked planes) against the single-device
+    stage p_frame_tree_device, with and without the kernels; then the
+    step's time against the single-device stage's. Returns {step:
+    launches}."""
+    import torch
+
+    from homerhevc_tpu_torch.ops.gather import GATHER_WIN
+    from homerhevc_tpu_torch.ops.me import ME_SAD
+
+    out = {}
+    for name, st in TREE_BAND_STEPS.items():
+        bands, single, rows = tree_step(dev, name)
+        for k in (ME_SAD, GATHER_WIN):
+            k.launches = 0
+        got = bands()
+        torch.cuda.synchronize()
+        launches = {"me_sad": ME_SAD.launches,
+                    "gather_win": GATHER_WIN.launches}
+        want = {"me_sad": 0, "gather_win": st["gather_win"]}
+        if launches != want:
+            raise AssertionError(f"{name}: launches {launches}, expected "
+                                 f"{want}")
+        plain = tree_step(dev, name, kernels=False)[0]()
+        one = single()
+        for key, w in one.items():
+            if not (torch.equal(got[key], w) and torch.equal(plain[key], w)):
+                raise AssertionError(f"{name}: {key} differs from the "
+                                     "single-device stage")
+        band_ms = synced_ms(bands, 3)
+        single_ms = synced_ms(single, 3)
+        log(f"  {name}: {PATHS[st['path']]['run']}'s stage settings, bands "
+            f"of {rows} rows: every output == p_frame_tree_device (deblocked "
+            f"too) with and without the kernels; launches {launches}; "
+            f"{band_ms:.1f} ms a step against {single_ms:.1f} ms for the "
+            f"single-device stage (host clock, best of 3, synchronised) on "
+            f"{card}")
         out[name] = launches
     return out
 
@@ -1584,15 +1702,19 @@ def run_gop_pipeline(card: str) -> dict:
 
 
 def phase_mesh(dev, fixture, by_path, card: str) -> None:
-    """Multi-device on the one card: the band stage at full size, the
-    session on a mesh of 4 (fastest_720p, fastest64_720p) and with
-    wpp_shards 4, the two-process GopPipeline. Adds each run's launches to
-    `by_path`."""
+    """Multi-device on the one card: the band stages at full size, the
+    session on a mesh of 4 (MESH_PATHS) and with wpp_shards 4, the
+    two-process GopPipeline. Adds each run's launches to `by_path`."""
     for name, launches in run_band_steps(dev, card).items():
         by_path[name] = (launches, None)
+    for name, launches in run_tree_band_steps(dev, card).items():
+        by_path[name] = (launches, None)
+    seeds = {p: r[1] for p, r in by_path.items()}
     for name in MESH_PATHS:
+        # the fixed-CU paths code their (fast) IDR again on the mesh
+        idr = None if name.startswith("fastest") else by_path[name][1]
         by_path[f"{name}_mesh{MESH_BANDS}"] = run_path(
-            dev, name, fixture, {}, mesh=[dev] * MESH_BANDS)
+            dev, name, fixture, seeds, mesh=[dev] * MESH_BANDS, idr=idr)
     mesh_timing(dev, "fastest_720p", by_path["fastest_720p"][1], card)
     by_path["wpp_shards4_720p"] = (run_wpp_shards(dev, fixture), None)
     by_path["gop_pipeline_720p"] = (run_gop_pipeline(card), None)

@@ -123,8 +123,8 @@ def check_slice(c: EncoderConfig) -> None:
 
 class HomerEncoder:
     """Streaming HEVC encoder session (IDR + P low-delay, or IBP through
-    push_frame) on one device, or with its fixed-CU P stages in bands on a
-    mesh of devices.
+    push_frame) on one device, or with its P frames in bands on a mesh of
+    devices.
 
     `device=None` (the default) is the CUDA device, and raises RuntimeError
     when there is none; a caller that wants the CPU says `device="cpu"`.
@@ -132,10 +132,13 @@ class HomerEncoder:
     several times); without it, `cfg.wpp_shards > 1` on a CUDA session
     builds one over that many CUDA devices from the session's own when the
     machine has them, and none otherwise (as the JAX package does). With a
-    mesh, every fixed-CU P stage (FASTEST and FASTER P frames, per frame and
-    in chunks, and the explicit P frames of IBP) runs in bands of whole CTU
-    rows (parallel/sharded.py); everything else runs on the mesh's first
-    device, which is the session's device (`device`, when not given). The
+    mesh, every P frame runs in bands of whole CTU rows
+    (parallel/sharded.py), per frame and in chunks: the fixed-CU stage
+    (FASTEST, FASTER, and the explicit P frames of IBP) and the CU
+    quadtree (FAST, FULL), each with its deblocking and SAO; within a chunk
+    each band keeps its reference rows. The IDR, the B frames and the
+    host's work run on the mesh's first device, which is the session's
+    device (`device`, when not given) and holds the joined reference. The
     AUs are the same with or without a mesh. A mesh whose devices are of
     another type than the session's, or whose first device is not the
     session's, raises ValueError.
@@ -372,8 +375,9 @@ class HomerEncoder:
                 return self._encode(yp, up, vp, True, self._scene_cut(qp))
         else:
             with prof.probe("p.device"):
-                out = self._fixed_p_device(self._cur_dev, self._ref, qp,
-                                           deblock=c.deblocking)
+                out = self._fixed_p_device(
+                    self._cur_dev, self._ref, qp, deblock=c.deblocking,
+                    sao=c.sample_adaptive_offset)
             mvs, sad, lev = self._fixed_p_fetch(out["wire"], size, "p")
             if c.reinit_gop_on_scene_change:
                 ms = float(sad.astype(np.int64).mean())
@@ -381,10 +385,8 @@ class HomerEncoder:
                     return self._encode(yp, up, vp, True,
                                         self._scene_cut(qp))
             maps = self._fixed_p_maps(mvs, lev, size, "p")
-            key = "ref" if c.deblocking else "recon"
-            self._ref = (out[key + "_y"], out[key + "_u"], out[key + "_v"])
             with prof.probe("sao"):
-                sao_info = self._maybe_sao(qp, slice_p=True)
+                sao_info = self._p_ref_and_sao(out, qp)
             with prof.probe("entropy"):
                 au = assemble.assemble_p_au_from_maps(
                     self.params, maps, poc=self.poc - self.last_idr,
@@ -395,9 +397,11 @@ class HomerEncoder:
                 recon = tuple(p.cpu().numpy() for p in self._ref)
         return au, recon
 
-    def _fixed_p_device(self, cur, ref, qp, *, deblock: bool) -> dict:
+    def _fixed_p_device(self, cur, ref, qp, *, deblock: bool,
+                        sao: bool = False) -> dict:
         """The fixed-CU P stage of one frame against `ref` (p_torch.
-        p_frame_device's result), in bands when the session has a mesh."""
+        p_frame_device's result); with a mesh in bands, the loop filter too,
+        SAO as well when `sao` is on (sharded.p_frame_bands)."""
         c = self.cfg
         kw = dict(B=self.ctu, qp=qp, search=c.me_search_range,
                   me_precision=int(c.motion_estimation_precision),
@@ -405,7 +409,18 @@ class HomerEncoder:
                   kernels=self.kernels)
         if self._mesh is None:
             return p_torch.p_frame_device(*cur, *ref, **kw)
-        return sharded.p_frame_bands(self._mesh, *cur, *ref, **kw)
+        return sharded.p_frame_bands(self._mesh, *cur, *ref, sao=sao, **kw)
+
+    def _p_ref_and_sao(self, out, qp):
+        """A P frame's loop-filtered reference from its device stage's
+        result `out`, SAO included (on the mesh the bands ran it already);
+        returns the SAO parameters or None."""
+        c = self.cfg
+        key = "ref" if c.deblocking or "sao_info" in out else "recon"
+        self._ref = (out[key + "_y"], out[key + "_u"], out[key + "_v"])
+        if self._mesh is not None:
+            return out.get("sao_info")
+        return self._maybe_sao(qp, slice_p=True)
 
     def _fixed_p_fetch(self, wire, size: int, stage: str):
         """One fetch of a fixed-CU P frame's device wire (probe
@@ -492,11 +507,17 @@ class HomerEncoder:
         prof = self.prof
         qp_rows = self._plan_rows(qp)
         with prof.probe("p.device"):
-            out = p_torch.p_frame_tree_device(
-                *self._cur_dev, *self._ref, qp=qp, deblock=c.deblocking,
-                qp_rows=(None if qp_rows is None
-                         else self._upload(qp_rows.astype(np.int32))),
-                **self._tree_kwargs())
+            kw = dict(qp=qp, deblock=c.deblocking,
+                      qp_rows=(None if qp_rows is None
+                               else self._upload(qp_rows.astype(np.int32))),
+                      **self._tree_kwargs())
+            if self._mesh is None:
+                out = p_torch.p_frame_tree_device(*self._cur_dev, *self._ref,
+                                                  **kw)
+            else:
+                out = sharded.p_frame_tree_bands(
+                    self._mesh, *self._cur_dev, *self._ref,
+                    sao=c.sample_adaptive_offset, **kw)
         uh, uw = self.ph // 4, self.pw // 4
         nu = uh * uw
         npix = self.ph * self.pw
@@ -521,10 +542,8 @@ class HomerEncoder:
         with prof.probe("p.decisions+maps"):
             maps = self._tree_maps(depth_u, mv_u, nz_u.astype(bool), trd_u,
                                    intra_u, lev, qp_rows)
-        key = "ref" if c.deblocking else "recon"
-        self._ref = (out[key + "_y"], out[key + "_u"], out[key + "_v"])
         with prof.probe("sao"):
-            sao_info = self._maybe_sao(qp, slice_p=True)
+            sao_info = self._p_ref_and_sao(out, qp)
         with prof.probe("entropy"):
             au = assemble.assemble_p_au_from_maps(
                 self.params, maps, poc=self.poc - self.last_idr,

@@ -1,9 +1,11 @@
 """HEVC deblocking filter (spec 8.7.2), whole-frame tensor passes.
 
 Port of homerhevc_tpu/ops/deblock.py (deblock_frame; the intra, the
-fixed-grid inter and the CU-quadtree inter boundary-strength maps). Vertical edges on the 8-pel grid
-filter as one (segments, rows, edges, 8 columns) batch; horizontal edges run
-the same pass on the transposed, vertically filtered frame. Exact int32.
+fixed-grid inter and the CU-quadtree inter boundary-strength maps). Vertical
+edges on the 8-pel grid filter as one (segments, rows, edges, 8 columns)
+batch; horizontal edges run the same pass on the transposed, vertically
+filtered frame. Exact int32. `deblock_band` filters one band of CTU rows
+from the rows its neighbours hold (parallel/sharded.py).
 """
 
 from __future__ import annotations
@@ -14,6 +16,17 @@ from .. import tables
 from ..device import const
 
 I32 = torch.int32
+
+# What the filter of a band's own rows reads beyond the band (bands cut on
+# the 16-row grid): samples on each side, luma 4 rows (an edge reads p3..q3
+# and writes p2..q2) and chroma 2 rows (p1..q1; writes p0, q0); and rows of
+# the 4x4-unit bS / QP maps, 2 above and 1 below: a chroma segment of 4 rows
+# (8 luma rows) filters its vertical edges with the bS and QP of its first
+# unit row, so the band's 2 chroma rows above take those of the unit row 8
+# luma rows up. tests/test_torch_parallel.py shows each the least that
+# gives the whole-frame filter's rows.
+HALO_Y, HALO_C = 4, 2
+HALO_UNITS = (2, 1)
 
 
 def _clip1(v):
@@ -167,6 +180,43 @@ def deblock_frame(y, u, v, *, bs_v, bs_h, qp_map, cb_qp_offset=0,
         v = _chroma_vertical_pass(v.T, bs2, qp_pc, qp_qc, cr_qp_offset,
                                   tc_offset).T
     return y.contiguous(), u.contiguous(), v.contiguous()
+
+
+def embed_rows(core, above, below, lead: int, trail: int):
+    """`core` with the rows `above` right before it and `below` right after
+    it (None: no rows), placed in zeros of lead + len(core) + trail rows,
+    `core` starting at row `lead`."""
+    parts = [core]
+    if above is not None:
+        parts.insert(0, above)
+    if below is not None:
+        parts.append(below)
+    na = 0 if above is None else above.shape[0]
+    nb = 0 if below is None else below.shape[0]
+    return torch.cat([core.new_zeros((lead - na,) + core.shape[1:]), *parts,
+                      core.new_zeros((trail - nb,) + core.shape[1:])])
+
+
+def deblock_band(y, u, v, above, below, *, bs_v, bs_h, qp_map, lead: int,
+                 **offsets):
+    """The rows of one band of deblock_frame's output. (y, u, v): the band's
+    reconstruction; `above` / `below`: (y, u, v) rows of the neighbouring
+    bands' reconstruction next to it (HALO_Y luma and HALO_C chroma rows),
+    None at the picture's top / bottom. bs_v, bs_h, qp_map: the maps over
+    the luma rows from `lead` rows above the band to as far below it
+    (multiples of 16, so the chroma edge grid stays aligned), true on the
+    rows the filter reads (HALO_UNITS). The planes are filtered in zeros of
+    that span; no edge whose filter reaches the band reads the zeros."""
+    n = y.shape[0]
+    trail = bs_v.shape[0] * 4 - lead - n
+    ab = (None,) * 3 if above is None else above
+    be = (None,) * 3 if below is None else below
+    ext = [embed_rows(p, a, b, lead >> (k > 0), trail >> (k > 0))
+           for k, (p, a, b) in enumerate(zip((y, u, v), ab, be))]
+    fy, fu, fv = deblock_frame(*ext, bs_v=bs_v, bs_h=bs_h, qp_map=qp_map,
+                               **offsets)
+    c0 = lead // 2
+    return (fy[lead:lead + n], fu[c0:c0 + n // 2], fv[c0:c0 + n // 2])
 
 
 def _tu_starts(tusz):

@@ -46,9 +46,26 @@ def edge_idx_map(rec: torch.Tensor, eo_class: int) -> torch.Tensor:
     return torch.where(valid, idx, 2)
 
 
-def apply_sao(rec: torch.Tensor, params: dict, ctu: int) -> torch.Tensor:
-    """Decoder-exact SAO application for one component plane (int32)."""
-    r = rec.to(I32)
+def _halo_core(rec: torch.Tensor, halo):
+    """(int32 plane with `halo` = (rows above, rows below) of neighbouring
+    bands, its own rows)."""
+    r_ext = rec.to(I32)
+    return r_ext, r_ext[halo[0]:r_ext.shape[0] - halo[1]]
+
+
+def _edge_idx(r_ext, eo_class: int, halo):
+    """edge_idx_map of a band's own rows, its neighbours' rows `halo`
+    around it (the picture's edge where there are none)."""
+    return edge_idx_map(r_ext, eo_class)[halo[0]:r_ext.shape[0] - halo[1]]
+
+
+def apply_sao(rec: torch.Tensor, params: dict, ctu: int,
+              halo=(0, 0)) -> torch.Tensor:
+    """Decoder-exact SAO application for one component plane (int32). For a
+    band of CTU rows, `rec` holds `halo` = (1, 1) rows of the neighbouring
+    bands above and below (0 at the picture's edge), what the edge offsets
+    of its first and last rows read, and the result is the band's rows."""
+    r_ext, r = _halo_core(rec, halo)
 
     def up(a):
         a = torch.as_tensor(a, device=rec.device).to(I32)
@@ -68,7 +85,7 @@ def apply_sao(rec: torch.Tensor, params: dict, ctu: int) -> torch.Tensor:
 
     eo_out = r
     for cls in range(4):
-        idx = edge_idx_map(r, cls)
+        idx = _edge_idx(r_ext, cls, halo)
         o = torch.zeros_like(r)
         for cat, ei in enumerate((0, 1, 3, 4)):
             o = torch.where(idx == ei, off_px[cat], o)
@@ -77,14 +94,16 @@ def apply_sao(rec: torch.Tensor, params: dict, ctu: int) -> torch.Tensor:
                        torch.where(typ_px == 2, eo_out, r))
 
 
-def stats_one(orig: torch.Tensor, rec: torch.Tensor, ctu: int):
+def stats_one(orig: torch.Tensor, rec: torch.Tensor, ctu: int,
+              halo=(0, 0)):
     """(ke, se, kb, sb) int32 per-CTU stat tensors for one component:
     EO counts/sums (4 classes x 4 categories) and BO counts/sums (32 bands)
-    of orig - rec, each (.., nby, nbx)."""
+    of orig - rec, each (.., nby, nbx). For a band, `rec` holds `halo` rows
+    of the neighbours, as in apply_sao."""
     H, W = orig.shape
     dev = orig.device
     nby, nbx = H // ctu, W // ctu
-    r = rec.to(I32)
+    r_ext, r = _halo_core(rec, halo)
     diff = (orig.to(I32) - r).reshape(-1).to(torch.int64)
     ones = torch.ones_like(diff)
     cid = ((torch.arange(H, device=dev)[:, None] // ctu) * nbx
@@ -100,7 +119,7 @@ def stats_one(orig: torch.Tensor, rec: torch.Tensor, ctu: int):
 
     ke, se = [], []
     for cls in range(4):
-        k, s = per_ctu(edge_idx_map(r, cls), 5)
+        k, s = per_ctu(_edge_idx(r_ext, cls, halo), 5)
         ke.append(torch.cat([k[0:2], k[3:5]]))     # edgeIdx 0, 1, 3, 4
         se.append(torch.cat([s[0:2], s[3:5]]))
     kb, sb = per_ctu(r >> 3, 32)
@@ -278,8 +297,20 @@ def sao_stage_device(orig_planes, dbk_planes, ctu: int, qp: int, qp_c: int,
     package does. Returns (sao_info, filtered uint8 planes)."""
     oy, ou, ov = orig_planes
     ry, ru, rv = dbk_planes
-    parts = (stats_one(oy, ry, ctu) + stats_one(ou, ru, ctu // 2)
-             + stats_one(ov, rv, ctu // 2))
+    info = derive_on_host(stats_one(oy, ry, ctu) + stats_one(ou, ru, ctu // 2)
+                          + stats_one(ov, rv, ctu // 2), qp, qp_c,
+                          slice_p=slice_p)
+    filt = tuple(apply_sao(r, p, c).to(torch.uint8)
+                 for r, p, c in ((ry, info["luma"], ctu),
+                                 (ru, info["cb"], ctu // 2),
+                                 (rv, info["cr"], ctu // 2)))
+    return info, filt
+
+
+def derive_on_host(parts, qp: int, qp_c: int, slice_p: bool = False) -> dict:
+    """The SAO parameters (the session's sao_info) from the twelve per-CTU
+    stat tensors of Y, Cb and Cr (stats_one's, in that order), derived on
+    the host by the reference's numpy derivation after one copy."""
     nby, nbx = parts[0].shape[-2:]
     flat = torch.cat([t.reshape(-1, nby, nbx) for t in parts]).cpu().numpy()
     st = []
@@ -292,9 +323,5 @@ def sao_stage_device(orig_planes, dbk_planes, ctu: int, qp: int, qp_c: int,
     luma, cbp, crp, ml, mu = derive_all_np(
         tuple(st[0:4]), tuple(st[4:8]), tuple(st[8:12]), qp, qp_c,
         slice_p=slice_p)
-    filt = tuple(apply_sao(r, p, c).to(torch.uint8)
-                 for r, p, c in ((ry, luma, ctu), (ru, cbp, ctu // 2),
-                                 (rv, crp, ctu // 2)))
-    info = dict(luma=luma, cb=cbp, cr=crp, merge_left=ml, merge_up=mu,
+    return dict(luma=luma, cb=cbp, cr=crp, merge_left=ml, merge_up=mu,
                 sao_luma=True, sao_chroma=True)
-    return info, filt

@@ -1,4 +1,4 @@
-"""Band sharding of the fixed-CU P stage over several devices.
+"""Band sharding of the P stages and the loop filter over several devices.
 
 Port of homerhevc_tpu/parallel/sharded.py. Two axes, as there:
   * 'gop'  — lanes: each encodes its own frame (the reference's
@@ -13,21 +13,29 @@ Port of homerhevc_tpu/parallel/sharded.py. Two axes, as there:
 A mesh is a (G, nb) nested sequence of torch devices that one process
 drives, as JAX's single-controller mesh is; a device may be named several
 times, so a mesh also runs on one card or on the CPU. Band outputs equal the
-single-device stage `p_torch.p_frame_device` element for element: the halo
+single-device stages of pipeline/p_torch.py element for element: the halo
 carries exactly the rows the whole-frame computation reads, and a band at the
 picture's top or bottom repeats the picture's edge row, as the whole-frame
 edge padding does.
 
-The session (api.HomerEncoder with `mesh=` or `wpp_shards`) runs every
-fixed-CU P stage through `band_p_stage` / `p_frame_bands`: one lane, bands
-of whole CTU rows, as even as the picture's height allows.
+Both P stages run in bands: the fixed-CU stage (`_band_stage`,
+`p_frame_bands`) and the CU quadtree (`_band_stage_tree`,
+`p_frame_tree_bands`), and so do the deblocking filter and SAO after
+either (`band_loop_filter`). The session (api.HomerEncoder with `mesh=` or
+`wpp_shards`) runs every P frame this way, per frame and in chunks
+(pipeline/p_chunk.py, where each band keeps its filtered reference rows
+from frame to frame): one lane, bands of whole CTU rows, as even as the
+picture's height allows (`band_heights`).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..device import edge_pad
+from .. import tables
+from ..device import I32, edge_pad
+from ..ops import deblock as dbk
+from ..ops import sao as sao_ops
 from ..pipeline import p_torch
 
 PAD = p_torch.PAD
@@ -35,12 +43,21 @@ PAD = p_torch.PAD
 # the seven outputs of the sharded step, in the reference's order
 OUTPUTS = ("mvs", "lev_y", "lev_u", "lev_v", "recon_y", "recon_u", "recon_v")
 
+# the outputs of a band of the tree stage that the frame's result joins
+TREE_KEYS = ("depth_u", "mv_u", "cbf_u", "trd_u", "pred_intra_u", "nz_u",
+             "qp_ctu", "qp_u", "sad", "lev_y", "lev_u", "lev_v", "recon_y",
+             "recon_u", "recon_v")
+# the unit maps the tree stage's deblocking reads
+UNIT_MAPS = ("depth_u", "mv_u", "cbf_u", "trd_u", "pred_intra_u", "qp_u")
+
 
 def halo_rows(search: int) -> int:
-    """Rows above and below a band that the fixed-CU stage can read: the
-    search range plus the 8-tap filter support, rounded up to 4, at most
-    PAD. Beyond them the band is edge-padded up to PAD, so the in-band
-    indexing is the whole frame's; that outer ring is never read."""
+    """Rows above and below a band that the P stages can read: the search
+    range plus the 8-tap filter support, rounded up to 4, at most PAD
+    (search 64: the hierarchical search's refine reaches |mv| <= 67, the
+    luma support window 4 rows above and 5 below). Beyond them the band is
+    edge-padded up to PAD, so the in-band indexing is the whole frame's;
+    that outer ring is never read (tests/test_torch_parallel.py)."""
     return min(PAD, ((search + 8 + 3) // 4) * 4)
 
 
@@ -80,6 +97,24 @@ def _halo_extend(bands, pad: int) -> list:
     return out
 
 
+def _ref_bands(ref, search: int) -> list:
+    """Each band's (y, u, v) uint8 reference rows as the PAD-padded int16
+    planes its P stage reads: extended by `halo_rows(search)` rows of the
+    neighbouring bands, then edge-padded to PAD rows and columns."""
+    halo = halo_rows(search)
+    e = PAD - halo
+    ext = [_halo_extend([r[k].to(torch.int16) for r in ref],
+                        halo if k == 0 else halo // 2) for k in range(3)]
+    return [(edge_pad(ext[0][b], e, PAD),
+             edge_pad(ext[1][b], e // 2, PAD // 2),
+             edge_pad(ext[2][b], e // 2, PAD // 2))
+            for b in range(len(ref))]
+
+
+def _to(t, dev):
+    return None if t is None else t.to(dev, non_blocking=True)
+
+
 def _band_stage(cur, ref, qp, *, B: int, search: int, me_precision: int,
                 sign_hiding: bool, kernels: bool) -> list:
     """The fixed-CU P stage on the bands of one frame. `cur` and `ref` hold
@@ -93,24 +128,111 @@ def _band_stage(cur, ref, qp, *, B: int, search: int, me_precision: int,
     (The reference's band function gives the first row no top candidate,
     and so differs from its single-device stage where a block there would
     merge with the block above: ROADMAP, faults of the reference.)"""
-    halo = halo_rows(search)
-    e = PAD - halo
-    ext = [_halo_extend([r[k].to(torch.int16) for r in ref],
-                        halo if k == 0 else halo // 2) for k in range(3)]
     outs, top = [], None
-    for b, (y, u, v) in enumerate(cur):
-        ry = edge_pad(ext[0][b], e, PAD)
-        ru = edge_pad(ext[1][b], e // 2, PAD // 2)
-        rv = edge_pad(ext[2][b], e // 2, PAD // 2)
+    for (y, u, v), padded in zip(cur, _ref_bands(ref, search)):
         out = p_torch._p_stage(
-            y, u, v, ry, ru, rv, B=B, qp=qp, search=search,
+            y, u, v, *padded, B=B, qp=qp, search=search,
             me_precision=me_precision, sign_hiding=sign_hiding,
-            kernels=kernels,
-            top_mv=None if top is None else top.to(y.device,
-                                                   non_blocking=True))
+            kernels=kernels, top_mv=_to(top, y.device))
         top = out["amvp"][-1]
         outs.append(out)
     return outs
+
+
+def _band_stage_tree(cur, ref, qp, *, ctu: int, search: int,
+                     me_precision: int, sign_hiding: bool,
+                     tr_split: bool = False, intra_in_p: bool = False,
+                     cu8: bool = False, qp_rows=None, wpp: bool = False,
+                     vis=None, kernels: bool = True) -> list:
+    """The CU-quadtree P stage (p_torch._p_stage_tree) on the bands of one
+    frame, `cur` and `ref` as in `_band_stage`; `qp_rows` (one QP per CTU
+    row) and `vis` (the visible picture) are the whole frame's. Returns the
+    per-band results (each on its band's device).
+
+    What a band reads of the others, besides the reference rows:
+      * the band above's last S-row of refined MVs at every CU size S, the
+        merge candidate `top` of its first row (passed on top to bottom);
+      * intra-in-P (CTU 32): see `_band_intra`;
+      * without WPP, the decoded-QP start of its first row: the target of
+        the last coded row above it, else the slice QP (passed on top to
+        bottom; with WPP every row starts from the slice QP).
+    Its rows of `qp_rows` are cut from the frame's, and `vis` is given in
+    band coordinates, so only the bottom band sees the conformance
+    padding."""
+    if ctu not in (32, 64):
+        raise NotImplementedError(f"tree P stage in bands at ctu={ctu} (32 "
+                                  "and 64 are ported)")
+    states, top, r0 = [], None, 0
+    for (y, u, v), padded in zip(cur, _ref_bands(ref, search)):
+        dev, n = y.device, y.shape[0]
+        qr = (None if qp_rows is None
+              else _to(qp_rows[r0 // ctu:(r0 + n) // ctu], dev))
+        st = p_torch._tree_levels(
+            y, u, v, *padded, ctu=ctu, qp=qp, search=search,
+            me_precision=me_precision, sign_hiding=sign_hiding,
+            tr_split=tr_split, cu8=cu8, qp_rows=qr, kernels=kernels,
+            vis=None if vis is None else (vis[0] - r0, vis[1]),
+            top_mv=None if top is None else {S: _to(t, dev)
+                                             for S, t in top.items()})
+        top = st["top"]
+        states.append((st, qr, r0))
+        r0 += n
+    if intra_in_p and ctu == 32:
+        _band_intra(cur, states, sign_hiding)
+    outs, start = [], None
+    for st, qr, _ in states:
+        if start is not None:
+            start = _to(start, st["qp"].device)
+        res = p_torch.tree_finish(st, qp_rows=qr, wpp=wpp, qp_start=start)
+        if qr is not None and not wpp:
+            start = p_torch.qp_carry(qr, res["nz_u"], ctu,
+                                     st["qp"] if start is None else start)
+        outs.append(res)
+    return outs
+
+
+def _band_intra(cur, states, sign_hiding: bool) -> None:
+    """Intra-in-P (CTU 32) over the bands' `_tree_levels` states, in place.
+    The CTUs tried are the frame's worst N by inter cost
+    (`p_torch.intra_sel_count` of the whole frame), selected once over the
+    bands' cost grids gathered on the first device, ties to the lower frame
+    index; each band codes its own of them, its first CTU row's top
+    references (luma and chroma, top right included) read from the last
+    row of the band above's pre-deblock inter reconstruction; the 4-colour
+    acceptance cascade runs once, on the frame's candidate grid (colours
+    and 8-neighbourhoods across band edges are the frame's); each band
+    takes its accepted CUs. Which CTUs a band codes is read on the host:
+    one synchronisation per frame."""
+    dst = cur[0][0].device
+    grid = torch.cat([_to(st["c32eff"], dst) for st, _, _ in states])
+    sel = p_torch.worst_n(grid.reshape(-1),
+                          p_torch.intra_sel_count(grid.numel()))
+    cands, above, lo = [], None, 0
+    for (_, u, v), (st, qr, r0) in zip(cur, states):
+        dev = st["cur"].device
+        nb = st["c32eff"].numel()
+        mine = sel[(sel >= lo) & (sel < lo + nb)] - lo
+        cands.append(None if not mine.numel() else p_torch._intra_candidates(
+            st["cur"], u, v, st["rec"], _to(mine, dev), qp=st["qp"],
+            lamf=st["lamf"], sign_hiding=sign_hiding, qp_rows=qr,
+            above=None if above is None else tuple(_to(a, dev)
+                                                   for a in above),
+            row0=r0 // 32))
+        # the band below reads this band's inter rows, before any intra CU
+        # replaces them
+        above = tuple(p[-1] for p in st["rec"])
+        lo += nb
+    acc = p_torch._intra_cascade(torch.cat([
+        torch.zeros(st["c32eff"].shape, dtype=torch.bool, device=dst)
+        if c is None else _to(c[0] < st["c32eff"], dst)
+        for c, (st, _, _) in zip(cands, states)]))
+    r = 0
+    for c, (st, _, _) in zip(cands, states):
+        nby = st["c32eff"].shape[0]
+        if c is not None:
+            p_torch.tree_intra(st, _to(acc[r:r + nby], st["cur"].device),
+                               *c[1:])
+        r += nby
 
 
 def _cut(plane, rows, devs) -> list:
@@ -123,6 +245,19 @@ def _cut(plane, rows, devs) -> list:
     return out
 
 
+def cut_planes(planes, rows, devs) -> list:
+    """(y, u, v) planes cut into bands of `rows` luma rows: per band its
+    (y, u, v) on devs[b]."""
+    return list(zip(*(_cut(p, [n >> (k > 0) for n in rows], devs)
+                      for k, p in enumerate(planes))))
+
+
+def join_planes(bands, dst) -> tuple:
+    """Per-band (y, u, v) planes joined into whole planes on `dst`."""
+    return tuple(torch.cat([_to(b[k], dst) for b in bands])
+                 for k in range(3))
+
+
 def band_heights(ctu_rows: int, nb: int) -> list:
     """CTU rows per band when `ctu_rows` are cut into at most `nb` bands as
     evenly as possible, the first bands taking the extra rows (no empty
@@ -131,41 +266,226 @@ def band_heights(ctu_rows: int, nb: int) -> list:
             for b in range(min(nb, ctu_rows))]
 
 
-def band_p_stage(devs, y, u, v, ref_y, ref_u, ref_v, *, B: int, qp,
-                 search: int, me_precision: int, sign_hiding: bool = False,
-                 kernels: bool = True) -> dict:
-    """p_torch._p_stage's result for one frame whose fixed-CU stage runs in
-    bands on `devs` (the band axis of a mesh; its first device holds the
-    planes and the result). Frame and reference are uint8 planes, not
-    padded; bands are whole B-rows, cut by band_heights."""
-    rows = [n * B for n in band_heights(y.shape[0] // B, len(devs))]
-    devs = devs[:len(rows)]
-    cur = list(zip(*(_cut(p, [n >> (k > 0) for n in rows], devs)
-                     for k, p in enumerate((y, u, v)))))
-    ref = list(zip(*(_cut(p, [n >> (k > 0) for n in rows], devs)
-                     for k, p in enumerate((ref_y, ref_u, ref_v)))))
-    outs = _band_stage(cur, ref, qp, B=B, search=search,
-                       me_precision=me_precision, sign_hiding=sign_hiding,
-                       kernels=kernels)
-    dst = y.device
+def band_rows(devs, height: int, ctu: int):
+    """(luma rows per band, the devices that get a band) for a picture of
+    `height` rows in CTU rows of `ctu`, cut by band_heights."""
+    rows = [n * ctu for n in band_heights(height // ctu, len(devs))]
+    return rows, devs[:len(rows)]
 
+
+def join_fixed(outs, dst) -> dict:
+    """The fixed-CU stage's frame result (p_torch.fixed_result) on `dst`
+    from its bands' results."""
     def cat(key):
-        return torch.cat([o[key].to(dst, non_blocking=True) for o in outs])
+        return torch.cat([_to(o[key], dst) for o in outs])
 
     return p_torch.fixed_result(*(cat(k) for k in (
         "mvs", "sad", "lev_y", "lev_u", "lev_v", "recon_y", "recon_u",
         "recon_v")))
 
 
+def join_tree(outs, dst) -> dict:
+    """The tree stage's frame result (p_torch.tree_result, the wire too) on
+    `dst` from its bands' results."""
+    return p_torch.tree_result(*(torch.cat([_to(o[k], dst) for o in outs])
+                                 for k in TREE_KEYS))
+
+
+def _neighbours(parts, b: int, above, below):
+    """The last rows of parts[b - 1] and the first rows of parts[b + 1]
+    (each a tuple of tensors, rows first; `above` and `below` rows of each,
+    or a count per tensor), on parts[b]'s device; None past the picture's
+    top or bottom."""
+    dev = parts[b][0].device
+    n = len(parts[b])
+    above = (above,) * n if isinstance(above, int) else above
+    below = (below,) * n if isinstance(below, int) else below
+    up = (None if b == 0 else
+          tuple(_to(t[-k:], dev) for t, k in zip(parts[b - 1], above)))
+    down = (None if b == len(parts) - 1 else
+            tuple(_to(t[:k], dev) for t, k in zip(parts[b + 1], below)))
+    return up, down
+
+
+def _deblock_bands(recs, outs, *, tree: bool, ctu: int, qp) -> list:
+    """The deblocking filter on the bands of one frame: per band its
+    filtered int32 (y, u, v), equal to the whole frame's rows there. A band
+    reads dbk.HALO_Y luma and dbk.HALO_C chroma rows of its neighbours'
+    reconstruction and the bS / QP inputs of dbk.HALO_UNITS unit rows: of
+    the tree stage, its unit maps; of the fixed-CU stage, the block row
+    above and below (MVs and cbf). Each band filters in zeros of the span
+    the maps cover (32 or a block row above, 16 or a block row below: the
+    TU grid and the chroma edge grid stay aligned)."""
+    nb = len(recs)
+    if tree:
+        maps = [tuple(o[k] for k in UNIT_MAPS) for o in outs]
+        lead_u, trail_u = 8, 4                  # unit rows (32, 16 luma)
+        units = dbk.HALO_UNITS
+    else:
+        maps = []
+        for o in outs:
+            lev = o["lev_y"]
+            m = (o["mvs"], (lev != 0).any(dim=-1).any(dim=-1))
+            if ctu == 64:                       # the cbf of its four TBs
+                nby, nbx = lev.shape[:2]
+                m += ((lev.reshape(nby, nbx, 2, 32, 2, 32) != 0)
+                      .any(5).any(3),)
+            maps.append(m)
+        lead_u = trail_u = 1                    # block rows
+        units = (1, 1)
+    halo_px = (dbk.HALO_Y, dbk.HALO_C, dbk.HALO_C)
+    out = []
+    for b in range(nb):
+        lead = 0 if b == 0 else lead_u
+        trail = 0 if b == nb - 1 else trail_u
+        m_up, m_down = _neighbours(maps, b, *units)
+        ext = [dbk.embed_rows(m, None if m_up is None else m_up[i],
+                              None if m_down is None else m_down[i],
+                              lead, trail)
+               for i, m in enumerate(maps[b])]
+        if tree:
+            depth_u, mv_u, cbf_u, trd_u, intra_u, qp_u = ext
+            bs_v, bs_h = dbk.inter_bs_from_units(
+                depth_u, mv_u, cbf_u, ctu.bit_length() - 1, trd_u=trd_u,
+                intra_u=intra_u)
+            lead_px = lead * 4
+        else:
+            bs_v, bs_h = dbk.inter_bs_from_blocks(
+                ext[0], ext[1], ctu, qcbf=ext[2] if ctu == 64 else None)
+            qp_u = p_torch._qp_tensor(qp, recs[b][0].device).expand(
+                bs_v.shape[0], bs_h.shape[1])
+            lead_px = lead * ctu
+        up, down = _neighbours(recs, b, halo_px, halo_px)
+        out.append(dbk.deblock_band(*recs[b], up, down, bs_v=bs_v, bs_h=bs_h,
+                                    qp_map=qp_u, lead=lead_px))
+    return out
+
+
+def _sao_bands(curs, recs, *, ctu: int, qp, host: bool):
+    """SAO on the bands of one frame's deblocked int32 planes `recs`
+    (sources `curs`): each band's statistics read one row of each
+    neighbour, the parameters are derived once from the statistics
+    gathered on the first device (`host`: copied to the host and derived
+    there, as the session's per-frame path does), each band is filtered
+    with its rows of them and the same one-row halo. Returns (per-band
+    filtered int32 planes, the derivation's result: the packed words
+    (3, nby, nbx) on the first device, or with `host` the sao_info)."""
+    nb = len(recs)
+    sizes = (ctu, ctu // 2, ctu // 2)
+    exts, halos, stats = [], [], []
+    for b in range(nb):
+        up, down = _neighbours(recs, b, 1, 1)
+        halo = (int(up is not None), int(down is not None))
+        ext = tuple(torch.cat([p for p in (None if up is None else up[k],
+                                           recs[b][k],
+                                           None if down is None else down[k])
+                               if p is not None]) for k in range(3))
+        exts.append(ext)
+        halos.append(halo)
+        stats.append([t for k in range(3) for t in sao_ops.stats_one(
+            curs[b][k].to(I32), ext[k], sizes[k], halo)])
+    dst = recs[0][0].device
+    parts = [torch.cat([_to(st[i], dst) for st in stats], dim=-2)
+             for i in range(12)]
+    if host:
+        qp_i = int(qp)
+        info = sao_ops.derive_on_host(
+            parts, qp_i, int(tables.chroma_qp_from_luma(qp_i)), slice_p=True)
+        params = (info["luma"], info["cb"], info["cr"])
+        derived = info
+    else:
+        from ..pipeline.p_chunk import pk_params
+        qp_t = p_torch._qp_tensor(qp, dst)
+        luma, cbp, crp, ml, mu = sao_ops.derive_all_from_stats(
+            tuple(parts[0:4]), tuple(parts[4:8]), tuple(parts[8:12]), qp_t,
+            tables.chroma_qp_t(qp_t), slice_p=True)
+        params = (luma, cbp, crp)
+        derived = torch.stack([pk_params(luma, merge=(ml, mu)),
+                               pk_params(cbp), pk_params(crp)])
+    out, r = [], 0
+    for b in range(nb):
+        dev = recs[b][0].device
+        nby = recs[b][0].shape[0] // ctu
+
+        def rows(par):
+            return {k: (torch.as_tensor(v)[r:r + nby]).to(dev)
+                    for k, v in par.items()}
+
+        out.append(tuple(sao_ops.apply_sao(exts[b][k], rows(params[k]),
+                                           sizes[k], halos[b])
+                         for k in range(3)))
+        r += nby
+    return out, derived
+
+
+def band_loop_filter(curs, outs, *, tree: bool, ctu: int, qp,
+                     deblock: bool, sao: bool, host: bool = False):
+    """The loop filter of one P frame in its bands: `outs` are the bands'
+    stage results (`_band_stage` or, with `tree`, `_band_stage_tree`),
+    `curs` their source planes. Deblocking (`_deblock_bands`) and then SAO
+    (`_sao_bands`), each band on its own device, equal to the whole-frame
+    filter's rows. Returns (per-band filtered int32 (y, u, v), the SAO
+    derivation's result or None)."""
+    recs = [tuple(o[k].to(I32) for k in ("recon_y", "recon_u", "recon_v"))
+            for o in outs]
+    if deblock:
+        recs = _deblock_bands(recs, outs, tree=tree, ctu=ctu, qp=qp)
+    if not sao:
+        return recs, None
+    return _sao_bands(curs, recs, ctu=ctu, qp=qp, host=host)
+
+
+def _frame_bands(devs, planes, ref, *, tree: bool, ctu: int, qp,
+                 deblock: bool, sao: bool, stage: dict):
+    """One P frame in bands, per frame: the stage, its loop filter (SAO
+    derived on the host, as the session's per-frame path does), the result
+    joined on the planes' device with ref_* the filtered planes and, with
+    SAO, sao_info."""
+    y = planes[0]
+    rows, devs = band_rows(devs, y.shape[0], ctu)
+    cur = cut_planes(planes, rows, devs)
+    ref_b = cut_planes(ref, rows, devs)
+    if tree:
+        outs = _band_stage_tree(cur, ref_b, qp, ctu=ctu, **stage)
+        result = join_tree(outs, y.device)
+    else:
+        outs = _band_stage(cur, ref_b, qp, B=ctu, **stage)
+        result = join_fixed(outs, y.device)
+    if deblock or sao:
+        filt, info = band_loop_filter(cur, outs, tree=tree, ctu=ctu, qp=qp,
+                                      deblock=deblock, sao=sao, host=True)
+        fy, fu, fv = join_planes(filt, y.device)
+        result["ref_y"] = fy.to(torch.uint8)
+        result["ref_u"] = fu.to(torch.uint8)
+        result["ref_v"] = fv.to(torch.uint8)
+        if sao:
+            result["sao_info"] = info
+    return result
+
+
 def p_frame_bands(devs, y, u, v, ref_y, ref_u, ref_v, *, B: int, qp,
                   search: int, me_precision: int, deblock: bool = False,
-                  sign_hiding: bool = False, kernels: bool = True) -> dict:
-    """p_torch.p_frame_device with the stage in bands on `devs`; the loop
-    filter runs on the first device, which holds the planes."""
-    result = band_p_stage(devs, y, u, v, ref_y, ref_u, ref_v, B=B, qp=qp,
-                          search=search, me_precision=me_precision,
-                          sign_hiding=sign_hiding, kernels=kernels)
-    return p_torch.with_loop_filter(result, qp, B) if deblock else result
+                  sao: bool = False, sign_hiding: bool = False,
+                  kernels: bool = True) -> dict:
+    """p_torch.p_frame_device with the stage and the loop filter in bands on
+    `devs`; with `sao`, ref_* are SAO-filtered too and `sao_info` holds
+    the parameters."""
+    return _frame_bands(devs, (y, u, v), (ref_y, ref_u, ref_v), tree=False,
+                        ctu=B, qp=qp, deblock=deblock, sao=sao, stage=dict(
+                            search=search, me_precision=me_precision,
+                            sign_hiding=sign_hiding, kernels=kernels))
+
+
+def p_frame_tree_bands(devs, y, u, v, ref_y, ref_u, ref_v, *, ctu: int, qp,
+                       deblock: bool = False, sao: bool = False,
+                       **stage) -> dict:
+    """p_torch.p_frame_tree_device with the stage (`_band_stage_tree`,
+    `stage`: its keywords) and the loop filter in bands on `devs`; with
+    `sao`, ref_* are SAO-filtered too and `sao_info` holds the
+    parameters."""
+    return _frame_bands(devs, (y, u, v), (ref_y, ref_u, ref_v), tree=True,
+                        ctu=ctu, qp=qp, deblock=deblock, sao=sao,
+                        stage=stage)
 
 
 def make_p_frame_sharded(mesh, *, B: int, search: int, me_precision: int,

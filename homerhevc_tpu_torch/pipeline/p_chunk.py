@@ -3,7 +3,8 @@ on the device.
 
 Port of homerhevc_tpu/pipeline/p_chunk.py for the fixed-CU path
 (`tree=False`) and the CU-quadtree path (`tree=True`, CTU 32 or 64, down to
-8x8 CUs with `cu8`, per-CTU-row QPs with and without WPP).
+8x8 CUs with `cu8`, per-CTU-row QPs with and without WPP), on one device or
+in bands of CTU rows on a mesh.
 The reference's `lax.scan` over K frames becomes a Python loop of
 batched tensor ops whose carry — the deblocked, SAO-filtered reference
 planes — never leaves the device. Each frame yields one compacted int32
@@ -127,65 +128,82 @@ def p_chunk_device(ys, us, vs, ref_y, ref_u, ref_v, qps, *, ctu: int,
     `intra_in_p`, 8x8 CUs `cu8`, the visible size `vis`, and with
     `qp_rows` (K, H // ctu) int32 one QP per CTU row of each frame, whose
     decoded-QP model follows `wpp`) over the fixed-CU one, which codes each
-    frame at its QP in `qps`, in bands on the devices of `mesh` when given
-    (parallel/sharded.py; the rest of the loop runs on the planes' device).
-    Returns
+    frame at its QP in `qps`. With `mesh` (a list of devices) either stage
+    and the loop filter run in bands on its devices (parallel/sharded.py),
+    each band keeping its filtered reference rows from frame to frame; the
+    wire is built on the planes' device, and the reference planes are
+    joined there at the chunk's end. Returns
     (wires (K, L) int32, denses (K, D) int16 dense level planes for the
     capacity-overflow fallback, final reference planes)."""
     K, H, W = ys.shape
     dev = ys.device
     uh, uw = H // 4, W // 4
-    ry8, ru8, rv8 = ref_y, ref_u, ref_v
+    ref = (ref_y, ref_u, ref_v)
+    if mesh is not None:
+        rows, devs = sharded.band_rows(mesh, H, ctu)
+        ref = sharded.cut_planes(ref, rows, devs)
+    common = dict(search=search, me_precision=me_precision,
+                  sign_hiding=sign_hiding, kernels=kernels)
+    stage = dict(common, B=ctu)
     wires, denses = [], []
     for k in range(K):
         y, u, v, qp = ys[k], us[k], vs[k], qps[k]
-        if tree or mesh is None:
-            padded = (edge_pad(ry8.to(torch.int16), PAD),
-                      edge_pad(ru8.to(torch.int16), PAD // 2),
-                      edge_pad(rv8.to(torch.int16), PAD // 2))
+        tree_kw = dict(common, ctu=ctu, tr_split=tr_split,
+                       intra_in_p=intra_in_p, cu8=cu8,
+                       qp_rows=None if qp_rows is None else qp_rows[k],
+                       wpp=wpp, vis=vis)
+        if mesh is None:
+            padded = (edge_pad(ref[0].to(torch.int16), PAD),
+                      edge_pad(ref[1].to(torch.int16), PAD // 2),
+                      edge_pad(ref[2].to(torch.int16), PAD // 2))
+            res = (p_torch._p_stage_tree(y, u, v, *padded, qp=qp, **tree_kw)
+                   if tree else p_torch._p_stage(y, u, v, *padded, qp=qp,
+                                                 **stage))
+        else:
+            cur = sharded.cut_planes((y, u, v), rows, devs)
+            outs = (sharded._band_stage_tree(cur, ref, qp, **tree_kw)
+                    if tree else sharded._band_stage(cur, ref, qp, **stage))
+            res = (sharded.join_tree(outs, dev) if tree
+                   else sharded.join_fixed(outs, dev))
         if tree:
-            res = p_torch._p_stage_tree(
-                y, u, v, *padded, ctu=ctu, qp=qp, search=search,
-                me_precision=me_precision, sign_hiding=sign_hiding,
-                tr_split=tr_split, intra_in_p=intra_in_p, cu8=cu8,
-                qp_rows=None if qp_rows is None else qp_rows[k], wpp=wpp,
-                vis=vis, kernels=kernels)
             depth_u, trd_u = res["depth_u"], res["trd_u"]
             intra_u, mv_u = res["pred_intra_u"], res["mv_u"]
             lev = (res["lev_y"], res["lev_u"], res["lev_v"])
         else:
-            stage = dict(B=ctu, qp=qp, search=search,
-                         me_precision=me_precision, sign_hiding=sign_hiding,
-                         kernels=kernels)
-            res = (p_torch._p_stage(y, u, v, *padded, **stage)
-                   if mesh is None else
-                   sharded.band_p_stage(mesh, y, u, v, ry8, ru8, rv8,
-                                        **stage))
             depth_u = trd_u = intra_u = torch.zeros((uh, uw), dtype=I32,
                                                     device=dev)
             mv_u = p_torch._upu(res["mvs"], ctu)
             lev = tuple(p_torch.to_plane(res[key])
                         for key in ("lev_y", "lev_u", "lev_v"))
-        rec = tuple(res[key].to(I32)
-                    for key in ("recon_y", "recon_u", "recon_v"))
-        if deblock and tree:
-            rec = p_torch.tree_deblock(rec, res, ctu)
-        elif deblock:
-            rec = p_torch.inter_deblock(rec, res["mvs"], res["lev_y"], qp,
-                                        ctu)
-        if sao:
-            qp_c = tables.chroma_qp_t(qp)
-            # the reference filters the uint8 loop-filter output
-            pp, rec = _sao_device((y.to(I32), u.to(I32), v.to(I32)), rec,
-                                  ctu, qp, qp_c)
+        pp = None
+        if mesh is not None:
+            rec, pp = sharded.band_loop_filter(
+                cur, outs, tree=tree, ctu=ctu, qp=qp, deblock=deblock,
+                sao=sao)
+            ref = [tuple(p.to(torch.uint8) for p in r) for r in rec]
         else:
+            rec = tuple(res[key].to(I32)
+                        for key in ("recon_y", "recon_u", "recon_v"))
+            if deblock and tree:
+                rec = p_torch.tree_deblock(rec, res, ctu)
+            elif deblock:
+                rec = p_torch.inter_deblock(rec, res["mvs"], res["lev_y"],
+                                            qp, ctu)
+            if sao:
+                qp_c = tables.chroma_qp_t(qp)
+                # the reference filters the uint8 loop-filter output
+                pp, rec = _sao_device((y.to(I32), u.to(I32), v.to(I32)),
+                                      rec, ctu, qp, qp_c)
+            ref = tuple(p.to(torch.uint8) for p in rec)
+        if pp is None:
             pp = torch.zeros((3, H // ctu, W // ctu), dtype=I32, device=dev)
-        ry8, ru8, rv8 = (p.to(torch.uint8) for p in rec)
         wires.append(_frame_wire(depth_u, trd_u, intra_u, mv_u, res["sad"],
                                  pp, lev, cap, fine=cu8))
         denses.append(torch.cat([p.to(torch.int16).reshape(-1)
                                  for p in lev]))
-    return torch.stack(wires), torch.stack(denses), ry8, ru8, rv8
+    if mesh is not None:
+        ref = sharded.join_planes(ref, dev)
+    return (torch.stack(wires), torch.stack(denses), *ref)
 
 
 # ---------------------------------------------------------------------------

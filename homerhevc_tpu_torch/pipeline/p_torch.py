@@ -598,49 +598,76 @@ def _intra_in_p(cur, u_pad, v_pad, rec, c32eff, *, qp, lamf, sign_hiding,
     """Per-CU intra fallback of the tree P stage (CTU 32): whole CTUs whose
     best intra-32 encode beats the tree's chosen inter cost.
 
-    Runs on the N CTUs with the worst inter RD cost only. References come
-    from the pre-deblock inter reconstruction `rec` with the decoder's
-    availability clips; the 11-mode battery is ranked by SAD, the top 2 are
-    full-coded, the winner is re-coded with sign hiding. Acceptance runs a
-    4-colour cascade so that no accepted CU's reference ring touches
-    another accepted CU: every neighbour an accepted CU predicts from keeps
-    its inter reconstruction, and the order-free batch equals the decoder's
-    sequential result. With `qp_rows` each candidate codes at its CTU row's
-    QP; the RD lambda `lamf` stays the frame's. Returns (acc (nby, nbx)
-    bool, mode (nby, nbx), luma (lev, rec) (nby, nbx, 32, 32), [(lev, rec)
-    (nby, nbx, 16, 16) for U and V])."""
+    Runs on the N CTUs with the worst inter RD cost only (`worst_n`), codes
+    them (`_intra_candidates`) and accepts them through the 4-colour
+    cascade (`_intra_cascade`). With `qp_rows` each candidate codes at its
+    CTU row's QP; the RD lambda `lamf` stays the frame's. Returns (acc
+    (nby, nbx) bool, mode (nby, nbx), luma (lev, rec) (nby, nbx, 32, 32),
+    [(lev, rec) (nby, nbx, 16, 16) for U and V])."""
+    nb_all = c32eff.numel()
+    sel_idx = worst_n(c32eff.reshape(-1), intra_sel_count(nb_all))
+    icst, im, luma, outs_c = _intra_candidates(
+        cur, u_pad, v_pad, rec, sel_idx, qp=qp, lamf=lamf,
+        sign_hiding=sign_hiding, qp_rows=qp_rows)
+    return _intra_cascade(icst < c32eff), im, luma, outs_c
+
+
+def intra_sel_count(nb_all: int) -> int:
+    """How many of a frame's `nb_all` CTUs intra-in-P tries: the worst N by
+    inter cost, counted over the whole frame."""
+    return min(nb_all, max(128, nb_all // 8))
+
+
+def _intra_candidates(cur, u_pad, v_pad, rec, sel_idx, *, qp, lamf,
+                      sign_hiding, qp_rows=None, above=None, row0: int = 0):
+    """The intra-32 encode of the CTUs `sel_idx` (raster indices into the
+    planes' CTU grid). References come from the pre-deblock inter
+    reconstruction `rec` with the decoder's availability clips; the 11-mode
+    battery is ranked by SAD, the top 2 are full-coded, the winner is
+    re-coded with sign hiding.
+
+    For a band of a frame (parallel/sharded.py): `row0` is the band's first
+    CTU row in the frame, and `above` the last row of the band above's
+    `rec` (luma, Cb, Cr): the top references of the band's first CTU row,
+    top-right samples included, read from it and count as available, as in
+    the whole frame. Returns (cost (nby, nbx), 1 << 30 where not tried,
+    mode, luma (lev, rec), [(lev, rec) for U and V]), every grid over the
+    planes' CTUs."""
     from .intra_torch import encode_block_one_mode
     H, W = cur.shape
     dev = cur.device
     nby, nbx = H // 32, W // 32
     nb_all = nby * nbx
+    n_sel = sel_idx.numel()
     recy, recu, recv = rec
     rr = torch.arange(nby, device=dev)
     cc = torch.arange(nbx, device=dev)
     hl = (cc[None] > 0).expand(nby, nbx).reshape(-1)
-    ht = (rr[:, None] > 0).expand(nby, nbx).reshape(-1)
+    ht = (rr[:, None] + row0 > 0).expand(nby, nbx).reshape(-1)
 
-    def rings(plane, n):
+    def rings(plane, n, above_row):
         """Top (2n samples, clipped at the plane's last column), left (n
-        samples, the last replicated below) and corner of every n-block."""
+        samples, the last replicated below) and corner of every n-block;
+        the first row's top and corner from `above_row` when given."""
+        o = int(above_row is not None)
+        if o:
+            plane = torch.cat([above_row[None].to(plane.dtype), plane])
         ph, pw = plane.shape
         ar = torch.arange(2 * n, device=dev)
-        ty = (rr * n - 1).clamp(min=0)
+        ty = (rr * n - 1 + o).clamp(min=0)
         lx = (cc * n - 1).clamp(min=0)
         top = plane[ty[:, None, None],
                     (cc[None, :, None] * n + ar).clamp(0, pw - 1)]
-        left = plane[(rr[:, None, None] * n + ar.clamp(max=n - 1))
+        left = plane[(rr[:, None, None] * n + ar.clamp(max=n - 1) + o)
                      .clamp(0, ph - 1), lx[None, :, None]]
         corner = plane[ty[:, None], lx[None]]
         return (top.reshape(nb_all, -1), left.reshape(nb_all, -1),
                 corner.reshape(-1))
 
-    # worst-N gating: intra can only win where inter is poor
-    n_sel = min(nb_all, max(128, nb_all // 8))
-    sel_idx = worst_n(c32eff.reshape(-1), n_sel)
+    above = (None,) * 3 if above is None else above
     if qp_rows is not None:
         qp = qp_rows.to(I32)[sel_idx // nbx]         # (N,) each CTU's row
-    topv, leftv, cornr = (t[sel_idx] for t in rings(recy, 32))
+    topv, leftv, cornr = (t[sel_idx] for t in rings(recy, 32, above[0]))
     o = _blocks(cur, 32)[sel_idx]
     hl_s, ht_s = hl[sel_idx], ht[sel_idx]
 
@@ -689,9 +716,33 @@ def _intra_in_p(cur, u_pad, v_pad, rec, c32eff, *, qp, lamf, sign_hiding,
 
     im = spread(im_s)
     icst = spread(icst_s, 1 << 30)
-    cand = icst < c32eff
-    # 4-colour cascade: colour k accepts only where no earlier accept lies
-    # in its 8-neighbourhood; same-colour CUs never share a ring
+
+    # chroma: the luma mode (DM) at 16x16, one mode per CU
+    qp_c = tables.chroma_qp_t(qp)
+    outs_c = []
+    for rc_c, plane_c, ab in ((recu, u_pad, above[1]),
+                              (recv, v_pad, above[2])):
+        topc, leftc, corc = (t[sel_idx] for t in rings(rc_c, 16, ab))
+        lvc_s, rcc_s = encode_block_one_mode(
+            _blocks(plane_c.to(I32), 16)[sel_idx], topc, leftc, corc, hl_s,
+            ht_s, im_s, size=16, c_idx=1, qp=qp_c, strong_smoothing=False,
+            sign_hiding=sign_hiding)
+        outs_c.append((spread(lvc_s), spread(rcc_s)))
+    return icst, im, (spread(ilev_s), spread(irec_s)), outs_c
+
+
+def _intra_cascade(cand: torch.Tensor) -> torch.Tensor:
+    """Acceptance of the intra candidates `cand` (nby, nbx) bool, a whole
+    frame's CTU grid: a 4-colour cascade so that no accepted CU's
+    reference ring touches another accepted CU. Colour k accepts only where
+    no earlier accept lies in its 8-neighbourhood; same-colour CUs never
+    share a ring. Every neighbour an accepted CU predicts from keeps its
+    inter reconstruction, so the order-free batch equals the decoder's
+    sequential result."""
+    nby, nbx = cand.shape
+    dev = cand.device
+    rr = torch.arange(nby, device=dev)
+    cc = torch.arange(nbx, device=dev)
     col = (rr[:, None] % 2) * 2 + (cc[None] % 2)
     acc = torch.zeros((nby, nbx), dtype=torch.bool, device=dev)
 
@@ -703,19 +754,7 @@ def _intra_in_p(cur, u_pad, v_pad, rec, c32eff, *, qp, lamf, sign_hiding,
 
     for kcol in range(4):
         acc = acc | (cand & (col == kcol) & ~ring(acc))
-
-    # chroma: the luma mode (DM) at 16x16, one mode per CU
-    qp_c = tables.chroma_qp_t(qp)
-    m_s = im.reshape(-1)[sel_idx]
-    outs_c = []
-    for rc_c, plane_c in ((recu, u_pad), (recv, v_pad)):
-        topc, leftc, corc = (t[sel_idx] for t in rings(rc_c, 16))
-        lvc_s, rcc_s = encode_block_one_mode(
-            _blocks(plane_c.to(I32), 16)[sel_idx], topc, leftc, corc, hl_s,
-            ht_s, m_s, size=16, c_idx=1, qp=qp_c, strong_smoothing=False,
-            sign_hiding=sign_hiding)
-        outs_c.append((spread(lvc_s), spread(rcc_s)))
-    return acc, im, (spread(ilev_s), spread(irec_s)), outs_c
+    return acc
 
 
 def _p_stage_tree(y_pad, u_pad, v_pad, ry, ru, rv, *, ctu: int, qp,
@@ -730,13 +769,40 @@ def _p_stage_tree(y_pad, u_pad, v_pad, ry, ru, rv, *, ctu: int, qp,
     else the dense SAD grid sweep at the finest level with the parents'
     grids pooled from it); every level is subpel-refined and residual-coded
     batched, and the split choice is a dense masked select over the node
-    costs, bottom up. `intra_in_p` (CTU 32 only) adds the per-CU intra
-    fallback. `qp_rows` (H // ctu,) codes each CTU row at its own QP
-    (cu_qp_delta; the ME lambda and the split overhead stay at the frame
-    QP `qp`, the slice QP), and `wpp` selects the decoder's QP prediction
-    with entropy sync (see `decoded_qp_maps`). Returns the unit maps (4x4
-    units), the decoded-QP maps, the selected level planes and
-    reconstruction, and the one-buffer host wire of the per-frame path."""
+    costs, bottom up (`_tree_levels`). `intra_in_p` (CTU 32 only) adds the
+    per-CU intra fallback. `qp_rows` (H // ctu,) codes each CTU row at its
+    own QP (cu_qp_delta; the ME lambda and the split overhead stay at the
+    frame QP `qp`, the slice QP), and `wpp` selects the decoder's QP
+    prediction with entropy sync (see `decoded_qp_maps`). Returns the unit
+    maps (4x4 units), the decoded-QP maps, the selected level planes and
+    reconstruction, and the one-buffer host wire of the per-frame path
+    (`tree_finish`). A band of a frame (parallel/sharded.py) runs these
+    phases one by one with what it reads of the other bands: `_tree_levels`
+    (`top_mv`), `_intra_candidates` (`above`, `row0`), `_intra_cascade` on
+    the frame's grid, `tree_finish` (`qp_start`)."""
+    st = _tree_levels(y_pad, u_pad, v_pad, ry, ru, rv, ctu=ctu, qp=qp,
+                      search=search, me_precision=me_precision,
+                      sign_hiding=sign_hiding, tr_split=tr_split, cu8=cu8,
+                      qp_rows=qp_rows, vis=vis, kernels=kernels)
+    if intra_in_p and ctu == 32:
+        intra = _intra_in_p(st["cur"], u_pad, v_pad, st["rec"], st["c32eff"],
+                            qp=st["qp"], lamf=st["lamf"],
+                            sign_hiding=sign_hiding, qp_rows=qp_rows)
+        tree_intra(st, *intra)
+    return tree_finish(st, qp_rows=qp_rows, wpp=wpp)
+
+
+def _tree_levels(y_pad, u_pad, v_pad, ry, ru, rv, *, ctu: int, qp,
+                 search: int, me_precision: int, sign_hiding: bool,
+                 tr_split: bool = False, cu8: bool = False, qp_rows=None,
+                 vis=None, kernels: bool = True, top_mv=None) -> dict:
+    """The inter half of `_p_stage_tree`: integer search, every level's
+    encode and the bottom-up split select. `top_mv` {S: (nbx, 2)}: the
+    refined MVs of the S-row above the first, per level (see
+    `_level_encode`). Returns the stage's state: the selected unit maps and
+    planes, the CTU-32 node costs `c32eff` (what intra-in-P competes with)
+    and `top` {S: the last S-row's refined MVs}, what a band below reads as
+    its `top_mv`."""
     if ctu not in (32, 64):
         raise NotImplementedError(f"tree P stage at ctu={ctu} (32 and 64 are "
                                   "ported)")
@@ -778,7 +844,8 @@ def _p_stage_tree(y_pad, u_pad, v_pad, ry, ru, rv, *, ctu: int, qp,
                                qp=qp, qp_c=qp_c, lam=lam, search=search,
                                me_precision=me_precision,
                                sign_hiding=sign_hiding, tr_split=tr_split,
-                               qp_rows=qp_rows, vis=vis, kernels=kernels)
+                               qp_rows=qp_rows, vis=vis, kernels=kernels,
+                               top_mv=None if top_mv is None else top_mv[S])
         enc[S]["icost"] = icost
 
     # bottom-up split select: a node splits when its four children's best
@@ -830,41 +897,60 @@ def _p_stage_tree(y_pad, u_pad, v_pad, ry, ru, rv, *, ctu: int, qp,
         d_px = depth_u.repeat_interleave(sub, 0).repeat_interleave(sub, 1)
         return by_depth(d_px, {S: to_plane(e[key]) for S, e in enc.items()})
 
-    lev_yp = sel_plane("lev_y", 4)
-    lev_up = sel_plane("lev_u", 2)
-    lev_vp = sel_plane("lev_v", 2)
-    rec = (sel_plane("rec_y", 4), sel_plane("rec_u", 2),
-           sel_plane("rec_v", 2))
+    return dict(
+        cur=cur, qp=qp, lamf=lamf, ctu=ctu, cu8=cu8, tr_split=tr_split,
+        depth_u=depth_u, mv_u=mv_u, cbf_u=cbf_u, trd_u=trd_u,
+        pred_intra_u=torch.zeros_like(depth_u),
+        lev=[sel_plane("lev_y", 4), sel_plane("lev_u", 2),
+             sel_plane("lev_v", 2)],
+        rec=(sel_plane("rec_y", 4), sel_plane("rec_u", 2),
+             sel_plane("rec_v", 2)),
+        c32eff=best[32], sad=enc[ctu]["icost"],
+        top={S: e["amvp"][-1] for S, e in enc.items()})
 
-    pred_intra_u = torch.zeros_like(depth_u)
-    if intra_in_p and ctu == 32:
-        acc, im, (ilev, irec), outs_c = _intra_in_p(
-            cur, u_pad, v_pad, rec, best[32], qp=qp, lamf=lamf,
-            sign_hiding=sign_hiding, qp_rows=qp_rows)
 
-        def sub_plane(plane, blocks_new, S):
-            m = acc.repeat_interleave(S, 0).repeat_interleave(S, 1)
-            return torch.where(m, to_plane(blocks_new), plane)
+def tree_intra(st: dict, acc, im, luma, outs_c) -> None:
+    """Put the accepted intra-in-P CUs (`_intra_in_p`'s outputs, `acc`
+    over the state's CTU grid) into a `_tree_levels` state, in place: their
+    levels and reconstruction, depth 0, no TU split, the intra flag, and
+    the luma mode in the MV's x slot of the wire."""
+    ilev, irec = luma
 
-        lev_yp = sub_plane(lev_yp, ilev, 32)
-        lev_up = sub_plane(lev_up, outs_c[0][0], 16)
-        lev_vp = sub_plane(lev_vp, outs_c[1][0], 16)
-        rec = (sub_plane(rec[0], irec, 32), sub_plane(rec[1], outs_c[0][1],
-                                                      16),
-               sub_plane(rec[2], outs_c[1][1], 16))
-        accu = _upu(acc, 32)
-        pred_intra_u = accu.to(I32)
-        depth_u = torch.where(accu, 0, depth_u)
-        trd_u = torch.where(accu, 0, trd_u)
-        # intra units carry the luma mode in the mv slot of the wire
-        imode_u = _upu(im, 32)
-        mv_u = torch.where(accu[..., None],
-                           torch.stack([imode_u, torch.zeros_like(imode_u)],
-                                       -1), mv_u)
-        cbf_u = torch.where(
-            accu, _upu((ilev != 0).any(dim=-1).any(dim=-1), 32), cbf_u)
+    def sub_plane(plane, blocks_new, S):
+        m = acc.repeat_interleave(S, 0).repeat_interleave(S, 1)
+        return torch.where(m, to_plane(blocks_new), plane)
 
-    if tr_split:
+    lev = st["lev"]
+    lev[0] = sub_plane(lev[0], ilev, 32)
+    lev[1] = sub_plane(lev[1], outs_c[0][0], 16)
+    lev[2] = sub_plane(lev[2], outs_c[1][0], 16)
+    rec = st["rec"]
+    st["rec"] = (sub_plane(rec[0], irec, 32),
+                 sub_plane(rec[1], outs_c[0][1], 16),
+                 sub_plane(rec[2], outs_c[1][1], 16))
+    accu = _upu(acc, 32)
+    st["pred_intra_u"] = accu.to(I32)
+    st["depth_u"] = torch.where(accu, 0, st["depth_u"])
+    st["trd_u"] = torch.where(accu, 0, st["trd_u"])
+    imode_u = _upu(im, 32)
+    st["mv_u"] = torch.where(
+        accu[..., None], torch.stack([imode_u, torch.zeros_like(imode_u)],
+                                     -1), st["mv_u"])
+    st["cbf_u"] = torch.where(
+        accu, _upu((ilev != 0).any(dim=-1).any(dim=-1), 32), st["cbf_u"])
+
+
+def tree_finish(st: dict, *, qp_rows=None, wpp: bool = False,
+                qp_start=None) -> dict:
+    """The tree P stage's result from a `_tree_levels` state (after
+    `tree_intra`): TB-granular cbf, the per-unit nonzero map, the
+    decoded-QP maps (`qp_start`: see `decoded_qp_maps`) and the wire."""
+    depth_u, trd_u = st["depth_u"], st["trd_u"]
+    lev_yp, lev_up, lev_vp = st["lev"]
+    ctu, cu8 = st["ctu"], st["cu8"]
+    H, W = lev_yp.shape
+    cbf_u = st["cbf_u"]
+    if st["tr_split"]:
         # TB-granular luma cbf for deblocking: split CUs deblock their
         # interior TU edges from per-16 coefficient presence
         nz16 = (lev_yp.reshape(H // 16, 16, W // 16, 16) != 0).any(3).any(1)
@@ -876,29 +962,43 @@ def _p_stage_tree(y_pad, u_pad, v_pad, ry, ru, rv, *, ctu: int, qp,
           | (lev_up.reshape(uh, 2, uw, 2) != 0).any(3).any(1)
           | (lev_vp.reshape(uh, 2, uw, 2) != 0).any(3).any(1)).to(I32)
 
-    ly16 = lev_yp.to(torch.int16)
-    lu16 = lev_up.to(torch.int16)
-    lv16 = lev_vp.to(torch.int16)
     # the reference models CU QPs per 16x16 block, which is exact unless
     # 8x8 CUs are coded; the port keeps that model at CTU 32 (its AUs equal
     # the reference's) and, at CTU 64, where the reference has none, models
     # 8x8 CUs exactly
+    qp = st["qp"]
     qp_ctu, qp_u = decoded_qp_maps(qp, qp_rows, ctu=ctu, nz_u=nz,
                                    depth_u=depth_u, wpp=wpp,
-                                   block=8 if cu8 and ctu == 64 else 16)
-    sad = enc[ctu]["icost"]
-    meta = torch.cat([depth_u.reshape(-1), mv_u.reshape(-1).to(I32),
-                      nz.reshape(-1), trd_u.reshape(-1),
-                      pred_intra_u.reshape(-1), sad.reshape(-1)])
+                                   block=8 if cu8 and ctu == 64 else 16,
+                                   qp_start=qp_start)
     u8 = torch.uint8
+    return tree_result(depth_u, st["mv_u"], cbf_u, trd_u,
+                       st["pred_intra_u"], nz, qp_ctu, qp_u, st["sad"],
+                       lev_yp, lev_up, lev_vp, *(p.to(u8) for p in st["rec"]))
+
+
+def tree_result(depth_u, mv_u, cbf_u, trd_u, pred_intra_u, nz_u, qp_ctu,
+                qp_u, sad, lev_y, lev_u, lev_v, recon_y, recon_u,
+                recon_v) -> dict:
+    """The tree P stage's result dict from its maps, level planes and uint8
+    reconstruction, with the one-buffer host wire of the per-frame path
+    (levels, then the unit maps and the per-CTU SAD as int32 bitcast to
+    int16 pairs)."""
+    ly16 = lev_y.to(torch.int16)
+    lu16 = lev_u.to(torch.int16)
+    lv16 = lev_v.to(torch.int16)
+    mv_u = mv_u.to(I32)
+    meta = torch.cat([depth_u.reshape(-1), mv_u.reshape(-1),
+                      nz_u.reshape(-1), trd_u.reshape(-1),
+                      pred_intra_u.reshape(-1), sad.reshape(-1)])
     return dict(
-        depth_u=depth_u, mv_u=mv_u.to(I32), cbf_u=cbf_u, trd_u=trd_u,
-        pred_intra_u=pred_intra_u, qp_ctu=qp_ctu, qp16=qp_u[::4, ::4],
-        qp_u=qp_u, sad=sad,
+        depth_u=depth_u, mv_u=mv_u, cbf_u=cbf_u, trd_u=trd_u,
+        pred_intra_u=pred_intra_u, nz_u=nz_u, qp_ctu=qp_ctu,
+        qp16=qp_u[::4, ::4], qp_u=qp_u, sad=sad,
         lev_y=ly16, lev_u=lu16, lev_v=lv16,
         wire=torch.cat([ly16.reshape(-1), lu16.reshape(-1), lv16.reshape(-1),
                         meta.view(torch.int16)]),
-        recon_y=rec[0].to(u8), recon_u=rec[1].to(u8), recon_v=rec[2].to(u8),
+        recon_y=recon_y, recon_u=recon_u, recon_v=recon_v,
     )
 
 
@@ -914,7 +1014,7 @@ def _zorder(hb: int, wb: int, k: int) -> np.ndarray:
 
 
 def decoded_qp_maps(qp, qp_rows, *, ctu: int, nz_u, depth_u, wpp: bool,
-                    block: int = 16):
+                    block: int = 16, qp_start=None):
     """The QPs a decoder assigns to a tree P frame coded with per-CTU-row
     targets `qp_rows` (one quantisation group per CTB): `qp_ctu` (H/ctu,
     W/ctu), what the syntax carries, and `qp_u` (H/4, W/4), what the
@@ -929,7 +1029,10 @@ def decoded_qp_maps(qp, qp_rows, *, ctu: int, nz_u, depth_u, wpp: bool,
     the first coded CU in z-order keep the prediction. CUs are read from
     `depth_u` in blocks of `block` (8 or 16) samples: a CU smaller than a
     block counts as the whole block, so 16 is exact unless 8x8 CUs are
-    coded and 8 always is."""
+    coded and 8 always is. For a band of a frame without WPP, `qp_start`
+    is the start value of its first row when no row of the band is coded
+    before it: the target of the last coded row of the bands above, else
+    the slice QP (`qp_carry` passes it on)."""
     dev = nz_u.device
     uh, uw = nz_u.shape
     nby, nbx = uh * 4 // ctu, uw * 4 // ctu
@@ -948,7 +1051,8 @@ def decoded_qp_maps(qp, qp_rows, *, ctu: int, nz_u, depth_u, wpp: bool,
         ri = torch.arange(nby, device=dev)
         last = torch.cummax(torch.where(coded.any(1), ri, -1), 0).values
         last = torch.cat([last.new_full((1,), -1), last[:-1]])
-        start = torch.where(last >= 0, rows[last.clamp(min=0)], qp)
+        start = torch.where(last >= 0, rows[last.clamp(min=0)],
+                            qp if qp_start is None else qp_start)
     pred = torch.where(seen_before, row_t, start[:, None])
     qp_ctu = torch.where(coded, row_t, pred)
 
@@ -972,6 +1076,18 @@ def decoded_qp_maps(qp, qp_rows, *, ctu: int, nz_u, depth_u, wpp: bool,
     qp_b = torch.where(cu_first >= _up(first, k), _up(row_t, k),
                        _up(pred, k))
     return qp_ctu, _up(qp_b, g)
+
+
+def qp_carry(qp_rows, nz_u, ctu: int, qp_start):
+    """The decoded-QP start value that rows below these ones inherit
+    without WPP: the target of the last CTU row here with any coded
+    residual (`nz_u`, 4x4 units), else `qp_start`."""
+    uh, uw = nz_u.shape
+    coded = (nz_u != 0).reshape(uh * 4 // ctu, -1).any(1)
+    ri = torch.arange(coded.shape[0], device=nz_u.device)
+    last = torch.where(coded, ri, -1).max()
+    return torch.where(last >= 0, qp_rows.to(I32)[last.clamp(min=0)],
+                       qp_start)
 
 
 def tree_deblock(rec, res, ctu: int):

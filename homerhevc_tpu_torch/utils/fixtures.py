@@ -43,7 +43,9 @@ band mesh of n devices (in the JAX package a jax Mesh of n of the test
 conftest's 8 virtual CPU devices; in the port ["cpu"] * n), the
 `mesh_wpp_shards_small` run through wpp_shards = 4; the tool records them
 from the JAX session with and without its mesh, asserting the two equal.
-Runs with `per_frame` go through encode_frame frame by frame. The `mh_*`
+Runs with `per_frame` go through encode_frame frame by frame; runs with
+`seeded` start from their first frame as the reference (seed_reference,
+poc 1) and code the others as P frames, no IDR. The `mh_*`
 runs are the single-process streams the two-process GopPipeline must write.
 INTRA_CASES are single frames (`intra_frame`) through the split-RDO IDR
 stage alone; the fixture holds a SHA-256 per output array for them.
@@ -233,6 +235,30 @@ RUNS = {
                            push=True, mesh=4, config="plain", over=dict(
                                performance_mode="FASTEST_COMPUTATION",
                                gop_size=2)),
+    # the quadtree stage and the loop filter in bands ("seeded": the session
+    # starts from the clip's first frame as its reference, poc 1, and codes
+    # the rest as P frames; no IDR): the defaults at CTU 64 in bands of one
+    # CTU row; FULL's 8x8 CUs; the hierarchical search (search 64) in bands
+    # of 64 and 32 rows, shorter than its 72-row halo; CBR without WPP (row
+    # QPs that differ within a frame: each band's decoded-QP start comes
+    # from the band above); CTU 32 in bands of 2, 1, 1, 1 CTU rows, the third
+    # starting at the odd row 3, with intra-in-P CUs accepted in the first
+    # rows of the second and fourth bands
+    "mesh_default_small": dict(width=128, height=256, frames=4, seed=0,
+                               chunk=3, seeded=True, mesh=4, config="plain",
+                               over=dict(cu_size=64)),
+    "mesh_full_small": dict(width=160, height=128, frames=4, seed=1,
+                            chunk=3, seeded=True, per_frame=True, mesh=4,
+                            config="plain", over=dict(
+                                performance_mode="FULL_COMPUTATION")),
+    "mesh_hier_small": dict(width=128, height=160, frames=4, seed=2, chunk=2,
+                            seeded=True, mesh=4, config="fast"),
+    "mesh_cbr_tree_small": dict(width=128, height=128, frames=10, seed=3,
+                                chunk=2, seeded=True, mesh=4, config="fast",
+                                over=dict(_RC8, bitrate_mode="CBR")),
+    "mesh_intra_p_odd_small": dict(width=160, height=160, frames=6, seed=0,
+                                   chunk=3, seeded=True, mesh=4,
+                                   config="plain"),
     # the two-process GopPipeline's streams (span 4; the IDR at POC 6 falls
     # inside the second span)
     **{f"mh_ip{ip}_small": dict(width=128, height=64, frames=8, seed=3,
@@ -478,13 +504,27 @@ def au_digest(aus) -> list:
             for a in aus]
 
 
+def _pad_edge(a: np.ndarray, h: int, w: int) -> np.ndarray:
+    """A plane edge-padded to (h, w), as both sessions pad a frame."""
+    return np.pad(a, ((0, h - a.shape[0]), (0, w - a.shape[1])), mode="edge")
+
+
 def encode_run(enc, name: str) -> list:
     """AUs of one of RUNS through an encoder session of either package:
     frame by frame through push_frame and then flush where the run says
     "push", through encode_frame where it says "per_frame", else through
-    encode_frames in chunks of its "chunk"."""
+    encode_frames in chunks of its "chunk". A "seeded" run installs its
+    first frame, padded, as the reference (seed_reference, poc 1) and codes
+    the others."""
     r = run_spec(name)
     frames = clip(name)
+    if r.get("seeded"):
+        c = enc.cfg
+        enc.seed_reference([_pad_edge(p, c.padded_height >> (k > 0),
+                                      c.padded_width >> (k > 0))
+                            for k, p in enumerate(frames[0])],
+                           poc=1, last_idr=0)
+        frames = frames[1:]
     if r.get("per_frame"):
         return [enc.encode_frame(*f) for f in frames]
     if not r.get("push"):
