@@ -41,7 +41,10 @@ Phases, each of which raises on failure (non-zero exit, no result line):
                the quadtree's on 720p bands: at CTU 64 (192 rows) G 25 and
                41 and the G 11 and 19 pairs, at CTU 32 with search 64 (192
                and 160 rows) the refine windows G 22 and 38, G 25 and 41,
-               and the G 11 and 19 pairs
+               and the G 11 and 19 pairs; the B stage's on 720p bands
+               (B_BAND_STEPS, 192 and 160 rows): me_sad at B 32, S 16 (nb
+               240 and 200), luma G 41, the G 19 pair and, at search 64,
+               the refine window G 38
   4. paths   — each main path through HomerEncoder(cfg).encode_frames on
                the default device, with the launch counts set to 0 just
                before it and read just after (launches per P frame):
@@ -107,14 +110,26 @@ Phases, each of which raises on failure (non-zero exit, no result line):
                settings in 4 bands of 3 CTU rows, fast_720p's in bands of
                6, 6, 6, 5) against p_frame_tree_device on every output,
                with and without the kernels, gather_win 6 per band, timed
-               against the single-device stage; fastest_720p,
-               fastest64_720p, fast_720p, default_720p and full64_720p again
-               with mesh=[card] * 4 (bands of 6, 6, 6, 5 and 3, 3, 3, 3 CTU
-               rows; the stage, deblocking and SAO of every P frame in
-               bands; launches per P frame the path's times 4; the
-               quadtree paths from their phase-4 IDR planes) against the
-               fixture, with and without the kernels, and their small
-               clips;
+               against the single-device stage; the B stage in 4 bands
+               (B_BAND_STEPS: ibp_fastest_720p's settings, search 16, and
+               ibp_fast_720p's, search 64) against b_frame_device, wire
+               included, with and without the kernels, launches asserted,
+               timed; the IDR in bands (INTRA_BAND_STEPS): pass A in rd
+               FULL and FAST against its whole-frame maps, the fixed-CU IDR
+               at B 32 and 64 with deblocking and SAO against
+               encode_frame_intra and the single-device filter, timed;
+               fastest_720p, fastest64_720p, fast_720p, default_720p and
+               full64_720p again with mesh=[card] * 4 (bands of 6, 6, 6, 5
+               and 3, 3, 3, 3 CTU rows; every frame in bands: the IDR,
+               fast_720p's split-RDO IDR included, and the stage,
+               deblocking and SAO of every P frame; launches per P frame
+               the path's times 4; default_720p and full64_720p from their
+               phase-4 IDR planes) against the fixture, with and without
+               the kernels, and their small clips (the CTU-64 split-RDO IDR
+               in bands there); ibp_fastest_720p through push_frame /
+               flush on the mesh (IDR and B frames in bands; launches per
+               frame type the path's times 4), with and without the
+               kernels, and its small clip;
                8 P frames on one device and on the mesh, in turns;
                wpp_shards=4 on one card (no mesh, the same AUs); the
                GopPipeline in two child processes (this script with
@@ -779,8 +794,9 @@ def run_path(dev, name, fixture, seeds, mesh=None, idr=None):
     no kernel runs in an IDR, and the split-RDO IDR takes most of a minute.
     A path with a `seed` starts from `seeds[seed]`, and one given `idr`
     (its own IDR's planes, from an earlier run) from those. With a `mesh`
-    (a list of devices) the sessions run their P frames in its bands: the
-    launches per P frame are the path's times the number of bands."""
+    (a list of devices) the sessions run every frame in its bands, the IDR
+    included: the launches per P frame are the path's times the number of
+    bands."""
     import copy
 
     import torch
@@ -942,17 +958,18 @@ def check_small(dev, names, fixture, mesh=None) -> None:
             + (f", on a mesh of {len(mesh)}" if mesh else ""))
 
 
-def ibp_session(cfg, dev, kernels, events):
-    """A session whose B frames and explicit P frames record (kind, launch
-    deltas, host-clocked ms ending in a synchronize) into `events`."""
+def ibp_session(cfg, dev, kernels, events, mesh=None):
+    """A session (on `mesh` when given) whose B frames and explicit P
+    frames record (kind, launch deltas, host-clocked ms ending in a
+    synchronize) into `events`."""
     import torch
 
     from homerhevc_tpu_torch.api import HomerEncoder
     from homerhevc_tpu_torch.ops.gather import GATHER_WIN
     from homerhevc_tpu_torch.ops.me import ME_SAD
 
-    enc = (HomerEncoder(cfg) if dev is None          # the card by default
-           else HomerEncoder(cfg, device=dev, kernels=kernels))
+    enc = (HomerEncoder(cfg, mesh=mesh) if dev is None  # the card by default
+           else HomerEncoder(cfg, device=dev, kernels=kernels, mesh=mesh))
 
     def counted(kind, fn):
         def call(*args):
@@ -993,15 +1010,19 @@ def push_all(enc, frames, d0, events):
     return aus + enc.flush()
 
 
-def run_ibp_path(dev, name, fixture):
+def run_ibp_path(dev, name, fixture, mesh=None):
     """One IBP path at 720p through push_frame / flush on the default
     device: its AUs against the fixture, with and without the kernels (the
     kernels=False session continues from the IDR's planes), launches per
-    frame type. Returns the launch counts and the IDR's planes."""
+    frame type. With a `mesh` (a list of devices) the sessions run every
+    frame in its bands, the IDR and the B frames included: launches per
+    frame type are the path's times the number of bands. Returns the
+    launch counts and the IDR's planes."""
     import torch
 
     from homerhevc_tpu_torch.ops.gather import GATHER_WIN
     from homerhevc_tpu_torch.ops.me import ME_SAD
+    from homerhevc_tpu_torch.parallel.sharded import band_heights
     from homerhevc_tpu_torch.utils import fixtures as fx
 
     path = IBP_PATHS[name]
@@ -1009,10 +1030,14 @@ def run_ibp_path(dev, name, fixture):
     frames = fx.clip(path["run"])[:n]
     want = fixture[path["run"]]["aus"][:n]
     cfg = fx.run_config(path["run"])
+    bands = (len(band_heights(cfg.padded_height // cfg.cu_size, len(mesh)))
+             if mesh else 1)
+    if mesh:
+        name = f"{name} on a mesh of {len(mesh)} ({bands} bands)"
     for k in (ME_SAD, GATHER_WIN):
         k.launches = 0
     events = []
-    enc = ibp_session(cfg, None, True, events)
+    enc = ibp_session(cfg, None, True, events, mesh)
     if enc.device.type != "cuda":
         raise AssertionError(f"default device is {enc.device}, not the card")
     torch.cuda.synchronize()
@@ -1031,7 +1056,8 @@ def run_ibp_path(dev, name, fixture):
         f"through push_frame / flush (first run: IDR {t1 - t0:.2f} s, the "
         f"other {n - 1} frames {t2 - t1:.2f} s); launches {launches}; frame "
         f"types in coding order {kinds}")
-    per_type = path["per_type"]
+    per_type = {kind: tuple(c * bands for c in counts)
+                for kind, counts in path["per_type"].items()}
     bad = [(kind, got) for kind, got, _ in events if got != per_type[kind]]
     if bad or kinds.count("b") != (n - 1) // 2 or "explicit" not in kinds:
         raise AssertionError(f"{name}: launches (me_sad, gather_win) per "
@@ -1048,7 +1074,7 @@ def run_ibp_path(dev, name, fixture):
         f"{sum(g['len'] for g in got)} bytes)")
     enc.close()
 
-    plain = ibp_session(cfg, dev, False, [])
+    plain = ibp_session(cfg, dev, False, [], mesh)
     plain.seed_reference(ref0, poc=0, last_idr=0)
     plain._disp = 1            # continue the display order after the IDR
     aus_plain = push_all(plain, frames[1:], 1, [])
@@ -1061,7 +1087,7 @@ def run_ibp_path(dev, name, fixture):
         raise AssertionError(f"{name}: kernels=False run launched a kernel")
     log(f"  {name}: kernels=False run of the {n - 1} frames after the IDR: "
         "AUs identical, nothing launched")
-    check_small(dev, path["small"], fixture)
+    check_small(dev, path["small"], fixture, mesh)
     return launches, ref0
 
 
@@ -1277,12 +1303,44 @@ TREE_BAND_STEPS = {
     "tree_720p_ctu64": dict(path="default_720p", bands=4, gather_win=24),
     "tree_720p_ctu32_s64": dict(path="fast_720p", bands=4, gather_win=24),
 }
+# The B stage in bands (phases 3 and 5), on a mesh that names the card 4
+# times: frame 1 of the 720p clip between frames 0 and 2, edge-padded to
+# 736 rows, at an IBP path's settings and its B frames' QP (34), in bands
+# of 6, 6, 6, 5 CTU rows (192 and 160 rows): ibp_fastest_720p's (search
+# 16: me_sad per list and band) and ibp_fast_720p's (search 64: the
+# hierarchical search, halo 72 = PAD). Launches per step: per band and
+# list me_sad 1 at search <= 24, gather_win the luma window and the chroma
+# pair, and above search 24 the refine window.
+B_BAND_STEPS = {
+    "b_720p_s16": dict(path="ibp_fastest_720p", bands=4, me_sad=8,
+                       gather_win=16),
+    "b_720p_s64": dict(path="ibp_fast_720p", bands=4, me_sad=0,
+                       gather_win=24),
+}
+# The IDR in bands at full size (phase 5), on a mesh that names the card 4
+# times, on the padded first frame of the 720p clip: pass A of the
+# split-RDO IDR (rd_mode FULL and FAST, TU split on) in bands of 6, 6, 6, 5
+# CTU rows against its whole-frame run, and the fixed-CU IDR (FASTEST) at
+# B 32 (6, 6, 6, 5) and B 64 (3, 3, 3, 3) with its deblocking and SAO
+# against encode_frame_intra and the single-device filter. No kernel runs
+# in an IDR.
+INTRA_BAND_STEPS = {
+    "pass_a_720p_rd1": dict(kind="pass_a", B=32, rd_mode=1),
+    "pass_a_720p_rd2": dict(kind="pass_a", B=32, rd_mode=2),
+    "idr_fixed_720p_b32": dict(kind="idr", B=32),
+    "idr_fixed_720p_b64": dict(kind="idr", B=64),
+}
 # the session paths of phase 4 run again on a mesh of the card named 4
 # times: fastest_720p and fast_720p cut 23 CTU rows into bands of 6, 6, 6,
-# 5, the CTU-64 paths 12 into 3, 3, 3, 3; the quadtree paths continue from
-# their IDR planes of phase 4 (full64_720p from default_720p's)
+# 5, the CTU-64 paths 12 into 3, 3, 3, 3. The fixed-CU paths and fast_720p
+# code their IDR in bands (fast_720p's split-RDO IDR: pass A and pass B's
+# wavefront in bands, its kernels=False run continuing from that IDR's
+# planes); default_720p and full64_720p continue from their IDR planes of
+# phase 4 (full64_720p from default_720p's), and their small clips code the
+# CTU-64 split-RDO IDR in bands
 MESH_PATHS = ("fastest_720p", "fastest64_720p", "fast_720p", "default_720p",
               "full64_720p")
+MESH_IDR_PATHS = ("fastest_720p", "fastest64_720p", "fast_720p")
 MESH_BANDS = 4
 # the two-process GopPipeline: fastest_720p's configuration with an IDR
 # every 6 frames, spans of 4, 9 frames (the IDR at POC 6 falls inside the
@@ -1346,6 +1404,36 @@ def tree_step(dev, name, kernels: bool = True):
             lambda: p_torch.p_frame_tree_device(*cur, *ref, **kw), rows)
 
 
+def b_step(dev, name, kernels: bool = True):
+    """A B_BAND_STEPS step: (the B stage in bands, the single-device
+    b_frame_device), each a callable that returns its dict, and the bands'
+    row counts."""
+    import numpy as np
+    import torch
+
+    from homerhevc_tpu_torch.api import HomerEncoder
+    from homerhevc_tpu_torch.parallel import sharded
+    from homerhevc_tpu_torch.pipeline import b_torch
+    from homerhevc_tpu_torch.utils import fixtures as fx
+
+    st = B_BAND_STEPS[name]
+    cfg = fx.run_config(IBP_PATHS[st["path"]]["run"])
+    enc = HomerEncoder(cfg, device=dev)
+    frames = [enc._pad_frame(*f) for f in fx.clip("720p")[:3]]
+    enc.close()
+    cur, ref0, ref1 = ([torch.as_tensor(np.ascontiguousarray(p), device=dev)
+                        for p in f] for f in (frames[1], frames[0],
+                                              frames[2]))
+    kw = dict(B=cfg.cu_size, qp=cfg.qp + 2, search=cfg.me_search_range,
+              me_precision=int(cfg.motion_estimation_precision),
+              sign_hiding=cfg.sign_hiding, vis=(cfg.height, cfg.width),
+              kernels=kernels)
+    mesh = [dev] * st["bands"]
+    rows, _ = sharded.band_rows(mesh, cfg.padded_height, cfg.cu_size)
+    return (lambda: sharded.b_frame_bands(mesh, *cur, *ref0, *ref1, **kw),
+            lambda: b_torch.b_frame_device(*cur, *ref0, *ref1, **kw), rows)
+
+
 def gather_site_kind(pair: bool, G: int) -> str:
     """What a gather_win call gathers, from its window side G: the chroma
     pair, the hierarchical search's refine window (S + 6) or the luma
@@ -1356,9 +1444,10 @@ def gather_site_kind(pair: bool, G: int) -> str:
 
 def phase_band_sites(dev, records) -> None:
     """The kernels at the band stages' call sites: one run of each
-    BAND_STEPS and TREE_BAND_STEPS step records the arguments of every
-    distinct kernel call (shapes, B, G); each is held against its plain
-    version (exact) and timed as the other sites are. Adds the sites to
+    BAND_STEPS, TREE_BAND_STEPS and B_BAND_STEPS step records the
+    arguments of every distinct kernel call (shapes, B, G; the B stage's
+    apart from the P stages'); each is held against its plain version
+    (exact) and timed as the other sites are. Adds the sites to
     `records`."""
     import torch
 
@@ -1369,6 +1458,8 @@ def phase_band_sites(dev, records) -> None:
     wrappers = (me.integer_me_cuda, gather.gather_windows_cuda)
 
     def recorder(kind, fn, step):
+        stage = "b" if step in B_BAND_STEPS else "p"
+
         def call(*args, **kw):
             if kind == "me_sad":
                 key = (kind, tuple(args[0].shape), kw["B"], kw["search"])
@@ -1376,7 +1467,7 @@ def phase_band_sites(dev, records) -> None:
                 pair = isinstance(args[0], tuple)
                 first = args[0][0] if pair else args[0]
                 key = (kind, pair, tuple(first.shape), args[3])
-            seen.setdefault(key, (step, args, kw))
+            seen.setdefault(key + (stage,), (step, args, kw))
             return fn(*args, **kw)
         return call
 
@@ -1392,6 +1483,11 @@ def phase_band_sites(dev, records) -> None:
             gather.gather_windows_cuda = recorder("gather_win", wrappers[1],
                                                   name)
             tree_step(dev, name)[0]()
+        for name in B_BAND_STEPS:
+            me.integer_me_cuda = recorder("me_sad", wrappers[0], name)
+            gather.gather_windows_cuda = recorder("gather_win", wrappers[1],
+                                                  name)
+            b_step(dev, name)[0]()
     finally:
         me.integer_me_cuda, gather.gather_windows_cuda = wrappers
     torch.cuda.synchronize()
@@ -1428,8 +1524,9 @@ def phase_band_sites(dev, records) -> None:
     # two band heights (192 and 160 rows): the two quadtree steps share
     # their 192-row sites (plane shape, nb and G; recorded under the first,
     # the CTU-64 step), whose G 73 and G 35 pair are the fixed-CU 720p
-    # step's
-    if kinds != ["gather_win"] * 17 + ["me_sad"]:
+    # step's; the B stage's me_sad and its 3 gathers (luma G 41, the G 19
+    # pair, the refine window G 38 at search 64) on each band height
+    if kinds != ["gather_win"] * 23 + ["me_sad"] * 3:
         raise AssertionError(f"band sites recorded: {sorted(seen)}")
 
 
@@ -1529,6 +1626,142 @@ def run_tree_band_steps(dev, card: str) -> dict:
             f"{card}")
         out[name] = launches
     return out
+
+
+def run_b_band_steps(dev, card: str) -> dict:
+    """Each B_BAND_STEPS step on the card with the launch counts set to 0
+    just before it and read just after; every output (idc, MVs, levels,
+    reconstruction, the wire) against the single-device b_frame_device,
+    with and without the kernels; then the step's time against the
+    single-device stage's. Returns {step: launches}."""
+    import torch
+
+    from homerhevc_tpu_torch.ops.gather import GATHER_WIN
+    from homerhevc_tpu_torch.ops.me import ME_SAD
+
+    out = {}
+    for name, st in B_BAND_STEPS.items():
+        bands, single, rows = b_step(dev, name)
+        for k in (ME_SAD, GATHER_WIN):
+            k.launches = 0
+        got = bands()
+        torch.cuda.synchronize()
+        launches = {"me_sad": ME_SAD.launches,
+                    "gather_win": GATHER_WIN.launches}
+        want = {"me_sad": st["me_sad"], "gather_win": st["gather_win"]}
+        if launches != want:
+            raise AssertionError(f"{name}: launches {launches}, expected "
+                                 f"{want}")
+        plain = b_step(dev, name, kernels=False)[0]()
+        one = single()
+        if got.keys() != one.keys():
+            raise AssertionError(f"{name}: outputs {sorted(got)}")
+        for key, w in one.items():
+            if not (torch.equal(got[key], w) and torch.equal(plain[key], w)):
+                raise AssertionError(f"{name}: {key} differs from the "
+                                     "single-device stage")
+        band_ms = synced_ms(bands, 3)
+        single_ms = synced_ms(single, 3)
+        log(f"  {name}: {IBP_PATHS[st['path']]['run']}'s B frame settings, "
+            f"bands of {rows} rows: every output == b_frame_device (the "
+            f"wire too) with and without the kernels; launches {launches}; "
+            f"{band_ms:.1f} ms a step against {single_ms:.1f} ms for the "
+            f"single-device stage (host clock, best of 3, synchronised) on "
+            f"{card}")
+        out[name] = launches
+    return out
+
+
+def run_intra_band_steps(dev, card: str) -> None:
+    """Each INTRA_BAND_STEPS step on the card: pass A in bands against the
+    whole frame's maps, the fixed-CU IDR in bands (deblocking and SAO
+    included) against encode_frame_intra's every output and the
+    single-device filter's planes and parameters; both timed (host clock,
+    synchronised), in bands and on one device. Asserts that no kernel
+    runs."""
+    import numpy as np
+    import torch
+
+    from homerhevc_tpu_torch import tables
+    from homerhevc_tpu_torch.ops.gather import GATHER_WIN
+    from homerhevc_tpu_torch.ops.me import ME_SAD
+    from homerhevc_tpu_torch.ops.sao import sao_stage_device
+    from homerhevc_tpu_torch.parallel import intra_bands, sharded
+    from homerhevc_tpu_torch.pipeline import intra_torch, p_torch
+    from homerhevc_tpu_torch.utils import fixtures as fx
+
+    qp = 32
+    qp_t = torch.tensor(qp, dtype=torch.int32, device=dev)
+    lam = torch.as_tensor(tables.LAMBDA_FX, device=dev)[qp_t]
+    first = fx.clip("720p")[0]
+    for name, st in INTRA_BAND_STEPS.items():
+        B = st["B"]
+        H = -(-720 // B) * B
+        planes = [torch.as_tensor(pad_plane(p, H >> (k > 0), 1280 >> (k > 0)),
+                                  device=dev) for k, p in enumerate(first)]
+        mesh = [dev] * MESH_BANDS
+        rows, devs = sharded.band_rows(mesh, H, B)
+        before = ME_SAD.launches + GATHER_WIN.launches
+        if st["kind"] == "pass_a":
+            kw = dict(strong_smoothing=True, rd_mode=st["rd_mode"],
+                      tu_split=True)
+
+            def bands():
+                parts = intra_bands.open_loop_maps_bands(
+                    planes[0], rows, devs, qp=qp, **kw)
+                return [torch.cat([p[k] for p in parts]) for k in range(4)]
+
+            def single():
+                return intra_torch._open_loop_maps(planes[0], B=32, qp=qp_t,
+                                                   lam_fx=lam, **kw)
+            reps = 2
+        else:
+            kw = dict(B=B, qp=qp, sign_hiding=True, split_rdo=False)
+
+            def bands():
+                return intra_bands.intra_frame_bands(
+                    mesh, *planes, deblock=True, sao=True, **kw)
+
+            def single():
+                out = intra_torch.encode_frame_intra(*planes, **kw)
+                fy = p_torch.deblock_intra_device(
+                    out["recon_y"], out["recon_u"], out["recon_v"], qp=qp,
+                    depth_units=out["depth_units"])
+                info, filt = sao_stage_device(
+                    planes, fy, B, qp, int(tables.chroma_qp_from_luma(qp)))
+                out.update(sao_info=info, **{f"ref_{k}": f for k, f in
+                                             zip("yuv", filt)})
+                return out
+            reps = 1
+        band_ms = synced_ms(bands, reps)
+        got = bands()
+        single_ms = synced_ms(single, reps)
+        want = single()
+        torch.cuda.synchronize()
+        if ME_SAD.launches + GATHER_WIN.launches != before:
+            raise AssertionError(f"{name}: a kernel was launched")
+        if isinstance(want, dict):
+            info_g, info_w = got.pop("sao_info"), want.pop("sao_info")
+            same = got.keys() == want.keys() and all(
+                torch.equal(got[k], want[k]) for k in want) and all(
+                np.array_equal(np.asarray(info_g[c][k]),
+                               np.asarray(info_w[c][k]))
+                for c in ("luma", "cb", "cr") for k in info_w[c]) and all(
+                np.array_equal(info_g[k], info_w[k])
+                for k in ("merge_left", "merge_up"))
+        else:
+            same = all(torch.equal(g, w) for g, w in zip(got, want))
+        if not same:
+            raise AssertionError(f"{name}: the bands differ from the "
+                                 "single-device function")
+        log(f"  {name}: {H}x1280 in bands of {rows} rows: every output == "
+            "the single-device function's" + (
+                " (deblocked and SAO-filtered planes, SAO parameters "
+                "included)" if st["kind"] == "idr" else " (unit maps)")
+            + f"; no kernel launched; {band_ms:.1f} ms in bands against "
+            f"{single_ms:.1f} ms on one device (host clock, "
+            f"{'best of 2' if reps == 2 else 'one call'}, synchronised) on "
+            f"{card}")
 
 
 def mesh_timing(dev, name, ref0, card: str) -> None:
@@ -1709,12 +1942,16 @@ def phase_mesh(dev, fixture, by_path, card: str) -> None:
         by_path[name] = (launches, None)
     for name, launches in run_tree_band_steps(dev, card).items():
         by_path[name] = (launches, None)
+    for name, launches in run_b_band_steps(dev, card).items():
+        by_path[name] = (launches, None)
+    run_intra_band_steps(dev, card)
     seeds = {p: r[1] for p, r in by_path.items()}
     for name in MESH_PATHS:
-        # the fixed-CU paths code their (fast) IDR again on the mesh
-        idr = None if name.startswith("fastest") else by_path[name][1]
+        idr = None if name in MESH_IDR_PATHS else by_path[name][1]
         by_path[f"{name}_mesh{MESH_BANDS}"] = run_path(
             dev, name, fixture, seeds, mesh=[dev] * MESH_BANDS, idr=idr)
+    by_path[f"ibp_fastest_720p_mesh{MESH_BANDS}"] = run_ibp_path(
+        dev, "ibp_fastest_720p", fixture, mesh=[dev] * MESH_BANDS)
     mesh_timing(dev, "fastest_720p", by_path["fastest_720p"][1], card)
     by_path["wpp_shards4_720p"] = (run_wpp_shards(dev, fixture), None)
     by_path["gop_pipeline_720p"] = (run_gop_pipeline(card), None)

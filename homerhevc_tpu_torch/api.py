@@ -43,7 +43,7 @@ from .device import require_cuda
 from .entropy import headers, native_backend
 from .ops.inter_golden import derive_block_decisions_fast
 from .ops.sao import sao_stage_device
-from .parallel import sharded
+from .parallel import intra_bands, sharded
 from .pipeline import (assemble, b_golden, b_torch, intra_torch, p_chunk,
                        p_torch)
 from .rate_control import RateControl
@@ -136,10 +136,13 @@ class HomerEncoder:
     (parallel/sharded.py), per frame and in chunks: the fixed-CU stage
     (FASTEST, FASTER, and the explicit P frames of IBP) and the CU
     quadtree (FAST, FULL), each with its deblocking and SAO; within a chunk
-    each band keeps its reference rows. The IDR, the B frames and the
-    host's work run on the mesh's first device, which is the session's
-    device (`device`, when not given) and holds the joined reference. The
-    AUs are the same with or without a mesh. A mesh whose devices are of
+    each band keeps its reference rows. So does every IDR, scene-cut
+    re-encodes included (parallel/intra_bands.py: pass A of the split-RDO
+    IDR, the wavefront of pass B or of the fixed-CU IDR, deblocking and
+    SAO), and every B frame (sharded.b_frame_bands). The host's work runs
+    on the mesh's first device, which is the session's device (`device`,
+    when not given) and holds the joined reference. The AUs are the same
+    with or without a mesh. A mesh whose devices are of
     another type than the session's, or whose first device is not the
     session's, raises ValueError.
     `cfg` must be this package's `EncoderConfig` (TypeError otherwise: the
@@ -332,11 +335,17 @@ class HomerEncoder:
             # the row-QP history does not survive an IDR
             self._prev_row_load = self._prev_row_bits = None
             tu_depth = self.params.max_tr_depth_intra
+            kw = dict(B=size, qp=qp, sign_hiding=c.sign_hiding,
+                      split_rdo=self.intra_split, rd_mode=int(c.rd_mode),
+                      tu_depth=tu_depth)
             with prof.probe("intra.device"):
-                out = intra_torch.encode_frame_intra(
-                    ydev, udev, vdev, B=size, qp=qp,
-                    sign_hiding=c.sign_hiding, split_rdo=self.intra_split,
-                    rd_mode=int(c.rd_mode), tu_depth=tu_depth)
+                if self._mesh is None:
+                    out = intra_torch.encode_frame_intra(ydev, udev, vdev,
+                                                         **kw)
+                else:                  # the loop filter in bands as well
+                    out = intra_bands.intra_frame_bands(
+                        self._mesh, ydev, udev, vdev, deblock=c.deblocking,
+                        sao=c.sample_adaptive_offset, **kw)
             with prof.probe("intra.fetch+maps"):
                 wire_h = out["wire"].cpu().numpy()      # one compact fetch
                 (cnt_i, mode_u8, depth_u8, part_u8, trd_u8, idx_i,
@@ -356,15 +365,20 @@ class HomerEncoder:
                     part_units=(part_u8.astype(bool) if self.intra_split
                                 else None),
                     tr_depth_units=(trd_u8 if tu_depth else None))
-            if c.deblocking:
-                self._ref = p_torch.deblock_intra_device(
-                    out["recon_y"], out["recon_u"], out["recon_v"], qp=qp,
-                    depth_units=out["depth_units"],
-                    trd_units=(out["trd_units"] if tu_depth else None))
+            if self._mesh is not None:
+                with prof.probe("sao"):
+                    sao_info = self._p_ref_and_sao(out, qp)
             else:
-                self._ref = (out["recon_y"], out["recon_u"], out["recon_v"])
-            with prof.probe("sao"):
-                sao_info = self._maybe_sao(qp)
+                if c.deblocking:
+                    self._ref = p_torch.deblock_intra_device(
+                        out["recon_y"], out["recon_u"], out["recon_v"],
+                        qp=qp, depth_units=out["depth_units"],
+                        trd_units=(out["trd_units"] if tu_depth else None))
+                else:
+                    self._ref = (out["recon_y"], out["recon_u"],
+                                 out["recon_v"])
+                with prof.probe("sao"):
+                    sao_info = self._maybe_sao(qp)
             with prof.probe("entropy"):
                 au = assemble.assemble_idr_au_from_maps(
                     self.params, maps, slice_qp=qp,
@@ -412,9 +426,9 @@ class HomerEncoder:
         return sharded.p_frame_bands(self._mesh, *cur, *ref, sao=sao, **kw)
 
     def _p_ref_and_sao(self, out, qp):
-        """A P frame's loop-filtered reference from its device stage's
-        result `out`, SAO included (on the mesh the bands ran it already);
-        returns the SAO parameters or None."""
+        """A P frame's (or, on the mesh, an IDR's) loop-filtered reference
+        from its device stage's result `out`, SAO included (on the mesh the
+        bands ran it already); returns the SAO parameters or None."""
         c = self.cfg
         key = "ref" if c.deblocking or "sao_info" in out else "recon"
         self._ref = (out[key + "_y"], out[key + "_u"], out[key + "_v"])
@@ -656,12 +670,15 @@ class HomerEncoder:
         with prof.probe("b.upload"):
             cur = tuple(self._upload(p) for p in self._pad_frame(*frame))
         with prof.probe("b.device"):
-            out = b_torch.b_frame_device(
-                *cur, *ref0, *ref1, B=self.ctu, qp=qp,
-                search=c.me_search_range,
-                me_precision=int(c.motion_estimation_precision),
-                sign_hiding=c.sign_hiding, vis=(c.height, c.width),
-                kernels=self.kernels)
+            kw = dict(B=self.ctu, qp=qp, search=c.me_search_range,
+                      me_precision=int(c.motion_estimation_precision),
+                      sign_hiding=c.sign_hiding, vis=(c.height, c.width),
+                      kernels=self.kernels)
+            if self._mesh is None:
+                out = b_torch.b_frame_device(*cur, *ref0, *ref1, **kw)
+            else:
+                out = sharded.b_frame_bands(self._mesh, *cur, *ref0, *ref1,
+                                            **kw)
         with prof.probe("b.fetch"):
             w = b_torch.unpack_b_wire(out["wire"].cpu().numpy(), self.ph,
                                       self.pw, self.ctu)    # one fetch

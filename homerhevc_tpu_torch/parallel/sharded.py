@@ -21,10 +21,12 @@ edge padding does.
 Both P stages run in bands: the fixed-CU stage (`_band_stage`,
 `p_frame_bands`) and the CU quadtree (`_band_stage_tree`,
 `p_frame_tree_bands`), and so do the deblocking filter and SAO after
-either (`band_loop_filter`). The session (api.HomerEncoder with `mesh=` or
-`wpp_shards`) runs every P frame this way, per frame and in chunks
+either, or after an IDR (`band_loop_filter`), and the B stage
+(`b_frame_bands`). The session (api.HomerEncoder with `mesh=` or
+`wpp_shards`) runs every frame this way: P frames per frame and in chunks
 (pipeline/p_chunk.py, where each band keeps its filtered reference rows
-from frame to frame): one lane, bands of whole CTU rows, as even as the
+from frame to frame), IDRs through parallel/intra_bands.py, B frames
+through `b_frame_bands`: one lane, bands of whole CTU rows, as even as the
 picture's height allows (`band_heights`).
 """
 
@@ -36,7 +38,7 @@ from .. import tables
 from ..device import I32, edge_pad
 from ..ops import deblock as dbk
 from ..ops import sao as sao_ops
-from ..pipeline import p_torch
+from ..pipeline import b_torch, p_torch
 
 PAD = p_torch.PAD
 
@@ -307,17 +309,25 @@ def _neighbours(parts, b: int, above, below):
     return up, down
 
 
-def _deblock_bands(recs, outs, *, tree: bool, ctu: int, qp) -> list:
+def _deblock_bands(recs, outs, *, tree: bool, ctu: int, qp,
+                   intra: bool = False) -> list:
     """The deblocking filter on the bands of one frame: per band its
     filtered int32 (y, u, v), equal to the whole frame's rows there. A band
     reads dbk.HALO_Y luma and dbk.HALO_C chroma rows of its neighbours'
     reconstruction and the bS / QP inputs of dbk.HALO_UNITS unit rows: of
-    the tree stage, its unit maps; of the fixed-CU stage, the block row
-    above and below (MVs and cbf). Each band filters in zeros of the span
-    the maps cover (32 or a block row above, 16 or a block row below: the
-    TU grid and the chroma edge grid stay aligned)."""
+    the tree stage, its unit maps; of an IDR (`intra`), its CU depth and TU
+    split maps (the intra bS of a unit row reads that row's maps alone, so
+    the tree's unit halo holds for it); of the fixed-CU stage, the block
+    row above and below (MVs and cbf). Each band filters in zeros of the
+    span the maps cover (32 or a block row above, 16 or a block row below:
+    the TU grid and the chroma edge grid stay aligned)."""
     nb = len(recs)
-    if tree:
+    if intra:
+        maps = [(o["depth_units"],) if o["trd_units"] is None
+                else (o["depth_units"], o["trd_units"]) for o in outs]
+        lead_u, trail_u = 8, 4                  # unit rows (32, 16 luma)
+        units = dbk.HALO_UNITS
+    elif tree:
         maps = [tuple(o[k] for k in UNIT_MAPS) for o in outs]
         lead_u, trail_u = 8, 4                  # unit rows (32, 16 luma)
         units = dbk.HALO_UNITS
@@ -343,7 +353,13 @@ def _deblock_bands(recs, outs, *, tree: bool, ctu: int, qp) -> list:
                               None if m_down is None else m_down[i],
                               lead, trail)
                for i, m in enumerate(maps[b])]
-        if tree:
+        if intra:
+            bs_v, bs_h = dbk.intra_bs_from_depth_units(
+                ext[0], trd_u=ext[1] if len(ext) > 1 else None)
+            qp_u = p_torch._qp_tensor(qp, recs[b][0].device).expand(
+                bs_v.shape[0], bs_h.shape[1])
+            lead_px = lead * 4
+        elif tree:
             depth_u, mv_u, cbf_u, trd_u, intra_u, qp_u = ext
             bs_v, bs_h = dbk.inter_bs_from_units(
                 depth_u, mv_u, cbf_u, ctu.bit_length() - 1, trd_u=trd_u,
@@ -361,15 +377,17 @@ def _deblock_bands(recs, outs, *, tree: bool, ctu: int, qp) -> list:
     return out
 
 
-def _sao_bands(curs, recs, *, ctu: int, qp, host: bool):
+def _sao_bands(curs, recs, *, ctu: int, qp, host: bool,
+               slice_p: bool = True):
     """SAO on the bands of one frame's deblocked int32 planes `recs`
     (sources `curs`): each band's statistics read one row of each
     neighbour, the parameters are derived once from the statistics
     gathered on the first device (`host`: copied to the host and derived
-    there, as the session's per-frame path does), each band is filtered
-    with its rows of them and the same one-row halo. Returns (per-band
-    filtered int32 planes, the derivation's result: the packed words
-    (3, nby, nbx) on the first device, or with `host` the sao_info)."""
+    there, as the session's per-frame path does; `slice_p`: with the P
+    slice's lambdas, else the I slice's), each band is filtered with its
+    rows of them and the same one-row halo. Returns (per-band filtered
+    int32 planes, the derivation's result: the packed words (3, nby, nbx)
+    on the first device, or with `host` the sao_info)."""
     nb = len(recs)
     sizes = (ctu, ctu // 2, ctu // 2)
     exts, halos, stats = [], [], []
@@ -390,7 +408,8 @@ def _sao_bands(curs, recs, *, ctu: int, qp, host: bool):
     if host:
         qp_i = int(qp)
         info = sao_ops.derive_on_host(
-            parts, qp_i, int(tables.chroma_qp_from_luma(qp_i)), slice_p=True)
+            parts, qp_i, int(tables.chroma_qp_from_luma(qp_i)),
+            slice_p=slice_p)
         params = (info["luma"], info["cb"], info["cr"])
         derived = info
     else:
@@ -398,7 +417,7 @@ def _sao_bands(curs, recs, *, ctu: int, qp, host: bool):
         qp_t = p_torch._qp_tensor(qp, dst)
         luma, cbp, crp, ml, mu = sao_ops.derive_all_from_stats(
             tuple(parts[0:4]), tuple(parts[4:8]), tuple(parts[8:12]), qp_t,
-            tables.chroma_qp_t(qp_t), slice_p=True)
+            tables.chroma_qp_t(qp_t), slice_p=slice_p)
         params = (luma, cbp, crp)
         derived = torch.stack([pk_params(luma, merge=(ml, mu)),
                                pk_params(cbp), pk_params(crp)])
@@ -418,21 +437,26 @@ def _sao_bands(curs, recs, *, ctu: int, qp, host: bool):
     return out, derived
 
 
-def band_loop_filter(curs, outs, *, tree: bool, ctu: int, qp,
-                     deblock: bool, sao: bool, host: bool = False):
-    """The loop filter of one P frame in its bands: `outs` are the bands'
-    stage results (`_band_stage` or, with `tree`, `_band_stage_tree`),
-    `curs` their source planes. Deblocking (`_deblock_bands`) and then SAO
-    (`_sao_bands`), each band on its own device, equal to the whole-frame
-    filter's rows. Returns (per-band filtered int32 (y, u, v), the SAO
-    derivation's result or None)."""
+def band_loop_filter(curs, outs, *, tree: bool = False, ctu: int, qp,
+                     deblock: bool, sao: bool, host: bool = False,
+                     intra: bool = False):
+    """The loop filter of one frame in its bands: `outs` are the bands'
+    stage results (`_band_stage`; with `tree`, `_band_stage_tree`'s; with
+    `intra`, an IDR's: recon_*, depth_units and trd_units, None without a
+    TU split), `curs` their source planes. Deblocking (`_deblock_bands`)
+    and then SAO (`_sao_bands`, an I slice's with `intra`), each band on
+    its own device, equal to the whole-frame filter's rows. Returns
+    (per-band filtered int32 (y, u, v), the SAO derivation's result or
+    None)."""
     recs = [tuple(o[k].to(I32) for k in ("recon_y", "recon_u", "recon_v"))
             for o in outs]
     if deblock:
-        recs = _deblock_bands(recs, outs, tree=tree, ctu=ctu, qp=qp)
+        recs = _deblock_bands(recs, outs, tree=tree, ctu=ctu, qp=qp,
+                              intra=intra)
     if not sao:
         return recs, None
-    return _sao_bands(curs, recs, ctu=ctu, qp=qp, host=host)
+    return _sao_bands(curs, recs, ctu=ctu, qp=qp, host=host,
+                      slice_p=not intra)
 
 
 def _frame_bands(devs, planes, ref, *, tree: bool, ctu: int, qp,
@@ -486,6 +510,40 @@ def p_frame_tree_bands(devs, y, u, v, ref_y, ref_u, ref_v, *, ctu: int, qp,
     return _frame_bands(devs, (y, u, v), (ref_y, ref_u, ref_v), tree=True,
                         ctu=ctu, qp=qp, deblock=deblock, sao=sao,
                         stage=stage)
+
+
+def b_frame_bands(devs, y, u, v, r0y, r0u, r0v, r1y, r1u, r1v, *, B: int,
+                  qp, search: int, me_precision: int,
+                  sign_hiding: bool = False, vis=None,
+                  kernels: bool = True) -> dict:
+    """b_torch.b_frame_device in bands of whole CTU rows on `devs`
+    (`band_rows`). Each band runs the B stage on its rows against both
+    references cut with `_ref_bands` (halo_rows(search) rows of the
+    neighbouring bands, device to device; the hierarchical search's PAD
+    rows come from the bands beyond where a band is shorter), `vis` seen
+    from the band's first row. Blocks read nothing else of another band:
+    the merge/AMVP walk that links them runs on the host
+    (b_golden.build_b_plans) over the joined arrays. The result is joined
+    on y's device, the wire packed once from the joined arrays (word for
+    word the single device's)."""
+    if B != 32:
+        raise NotImplementedError(f"B stage in bands at B={B} (32 is "
+                                  "ported)")
+    dst = y.device
+    rows, devs = band_rows(devs, y.shape[0], B)
+    cur = cut_planes((y, u, v), rows, devs)
+    refs = [_ref_bands(cut_planes(ref, rows, devs), search)
+            for ref in ((r0y, r0u, r0v), (r1y, r1u, r1v))]
+    outs, r0 = [], 0
+    for b, (yb, ub, vb) in enumerate(cur):
+        outs.append(b_torch.b_stage(
+            yb, ub, vb, (refs[0][b], refs[1][b]), B=B, qp=qp, search=search,
+            me_precision=me_precision, sign_hiding=sign_hiding, vis=vis,
+            row0=r0, kernels=kernels))
+        r0 += rows[b]
+    out = {k: torch.cat([_to(o[k], dst) for o in outs]) for k in outs[0]}
+    out["wire"] = b_torch.pack_b_wire(out)
+    return out
 
 
 def make_p_frame_sharded(mesh, *, B: int, search: int, me_precision: int,

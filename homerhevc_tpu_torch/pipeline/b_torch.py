@@ -182,9 +182,28 @@ def b_frame_device(y_pad, u_pad, v_pad, r0y, r0u, r0v, r1y, r1u, r1v, *,
     """One B frame, CU = TU = B grid, references (past, future) as decoded
     uint8 planes. Returns the reference's per-block arrays: inter_dir `idc`
     (0 L0 / 1 L1 / 2 BI), `mv0`/`mv1` (nby, nbx, 2) quarter-pel (x, y),
-    levels and reconstruction, plus `wire`, one int16 buffer with the
-    levels and then the int32 idc, mv0, mv1 bitcast to int16 pairs (the
-    host's one copy per B frame)."""
+    levels and reconstruction, plus `wire` (`pack_b_wire`)."""
+    pads = [(edge_pad(ry.to(torch.int16), PAD),
+             edge_pad(ru.to(torch.int16), PAD // 2),
+             edge_pad(rv.to(torch.int16), PAD // 2))
+            for ry, ru, rv in ((r0y, r0u, r0v), (r1y, r1u, r1v))]
+    out = b_stage(y_pad, u_pad, v_pad, pads, B=B, qp=qp, search=search,
+                  me_precision=me_precision, sign_hiding=sign_hiding,
+                  vis=vis, kernels=kernels)
+    out["wire"] = pack_b_wire(out)
+    return out
+
+
+def b_stage(y_pad, u_pad, v_pad, pads, *, B: int, qp, search: int,
+            me_precision: int, sign_hiding: bool = False, vis=None,
+            row0: int = 0, kernels: bool = True) -> dict:
+    """The B stage of `b_frame_device` without the wire, on pre-padded
+    references `pads` (per list the (y, u, v) int16 planes edge-padded by
+    PAD, PAD/2 for chroma, or a band's rows of them with its halo:
+    parallel/sharded.b_frame_bands). `row0` is the
+    first luma row of `y_pad` in the picture and `vis` the visible
+    picture's (height, width), so that only rows below the picture's own
+    take the conformance padding's orig := pred."""
     H, W = y_pad.shape
     nby, nbx = H // B, W // B
     nb = nby * nbx
@@ -197,10 +216,6 @@ def b_frame_device(y_pad, u_pad, v_pad, r0y, r0u, r0v, r1y, r1u, r1v, *,
     lam_full_t = const(tables.LAMBDA_FX_P, dev)
     cur = y_pad.to(I32)
 
-    pads = [(edge_pad(ry.to(torch.int16), PAD),
-             edge_pad(ru.to(torch.int16), PAD // 2),
-             edge_pad(rv.to(torch.int16), PAD // 2))
-            for ry, ru, rv in ((r0y, r0u, r0v), (r1y, r1u, r1v))]
     bi = torch.arange(nb, device=dev, dtype=I32)
     r = bi // nbx
     c = bi % nbx
@@ -242,16 +257,16 @@ def b_frame_device(y_pad, u_pad, v_pad, r0y, r0u, r0v, r1y, r1u, r1v, *,
     oy = blk
     ou = _blocks(u_pad.to(I32), B2)
     ov = _blocks(v_pad.to(I32), B2)
-    if vis is not None and (vis[0] < H or vis[1] < W):
+    if vis is not None and (vis[0] < row0 + H or vis[1] < W):
         # rows and columns beyond the visible picture: orig := pred
-        def visible(s, vh, vw):
+        def visible(s, y0, vh, vw):
             ys = torch.arange(s, device=dev, dtype=I32)
-            vmy = (r[:, None] * s + ys[None]) < vh
+            vmy = (y0 + r[:, None] * s + ys[None]) < vh
             vmx = (c[:, None] * s + ys[None]) < vw
             return vmy[:, :, None] & vmx[:, None, :]
 
-        oy = torch.where(visible(B, vis[0], vis[1]), oy, pred_y)
-        m_c = visible(B2, vis[0] // 2, vis[1] // 2)
+        oy = torch.where(visible(B, row0, vis[0], vis[1]), oy, pred_y)
+        m_c = visible(B2, row0 // 2, vis[0] // 2, vis[1] // 2)
         ou = torch.where(m_c, ou, pred_u)
         ov = torch.where(m_c, ov, pred_v)
     lev_y, rec_y = _code_cu(oy, pred_y, qp, log2, sign_hiding, lam_full_t)
@@ -268,12 +283,17 @@ def b_frame_device(y_pad, u_pad, v_pad, r0y, r0u, r0v, r1y, r1u, r1v, *,
     for k, t in (("lev_u", lev_u), ("lev_v", lev_v),
                  ("rec_u", rec_u), ("rec_v", rec_v)):
         out[k] = t.reshape(nby, nbx, B2, B2)
-    meta = torch.cat([out[k].reshape(-1) for k in ("idc", "mv0", "mv1")])
-    out["wire"] = torch.cat([lev_y.to(torch.int16).reshape(-1),
-                             lev_u.to(torch.int16).reshape(-1),
-                             lev_v.to(torch.int16).reshape(-1),
-                             meta.view(torch.int16)])
     return out
+
+
+def pack_b_wire(out: dict):
+    """One int16 buffer per B frame (the host's one copy): all luma levels,
+    then all Cb, then all Cr levels, then the int32 idc, mv0 and mv1 bitcast
+    to int16 pairs, each of the whole frame in block raster order."""
+    meta = torch.cat([out[k].reshape(-1) for k in ("idc", "mv0", "mv1")])
+    return torch.cat([out[k].to(torch.int16).reshape(-1)
+                      for k in ("lev_y", "lev_u", "lev_v")]
+                     + [meta.view(torch.int16)])
 
 
 def unpack_b_wire(wire, H: int, W: int, B: int) -> dict:

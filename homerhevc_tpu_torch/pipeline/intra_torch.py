@@ -23,6 +23,8 @@ the reference output for output.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -67,8 +69,10 @@ def _code_blocks(orig, preds, modes, *, size, c_idx, qp, sign_hiding):
 _FAST_MODES = (0, 1, 2, 6, 10, 14, 18, 22, 26, 30, 34)
 
 
+@functools.lru_cache(maxsize=None)
 def _mode_list(rd_mode: int) -> np.ndarray:
-    """The modes a battery evaluates: the FAST subset or all 35."""
+    """The modes a battery evaluates: the FAST subset or all 35 (one array
+    per rd_mode, uploaded once per device by `const`)."""
     return np.asarray(_FAST_MODES if rd_mode == 2 else np.arange(35),
                       np.int64)
 
@@ -139,7 +143,8 @@ _BATTERY_ELEMS = 1 << 23
 
 
 def _open_loop_maps(y_pad, *, B: int, qp, lam_fx, strong_smoothing: bool,
-                    rd_mode: int = 1, tu_split: bool = True):
+                    rd_mode: int = 1, tu_split: bool = True, above: int = 0,
+                    below: int = 0):
     """Pass A of the two-pass intra quadtree: batched open-loop mode search
     and split decision over the whole frame, one dense pass per block size
     4, 8, 16, 32.
@@ -157,13 +162,21 @@ def _open_loop_maps(y_pad, *, B: int, qp, lam_fx, strong_smoothing: bool,
     coded NxN (four 4x4 PUs with their own modes). Every pick is a first
     minimum and every comparison a strict less-than, as in the reference.
     Returns (mode_u, depth_u, part_u, trd_u) unit maps (H/4, W/4); depth 0
-    is a CU of size B."""
+    is a CU of size B.
+
+    A band of the frame passes its rows with `above` rows of the picture
+    before them and `below` rows after them (parallel/intra_bands.py): the
+    maps cover the band's own rows, its first block row sees the row above
+    as available, and the left columns that run below the band read the
+    rows after it; only the picture's top and bottom clamp."""
     if B != 32:
         raise NotImplementedError(f"split-RDO intra at B={B} (only 32 is "
                                   "ported)")
-    H, W = y_pad.shape
+    Hx, W = y_pad.shape
+    H = Hx - above - below
     dev = y_pad.device
-    orig = y_pad.to(I32)
+    plane = y_pad.to(I32)
+    orig = plane[above:above + H]
     if rd_mode == 0:
         lam_fx = torch.zeros_like(lam_fx)
     subset = _FAST_MODES if rd_mode == 2 else None
@@ -175,16 +188,16 @@ def _open_loop_maps(y_pad, *, B: int, qp, lam_fx, strong_smoothing: bool,
         ar = torch.arange(2 * S, device=dev)
         rr = torch.arange(nby, device=dev)
         cc = torch.arange(nbx, device=dev)
-        ty = (rr * S - 1).clamp(min=0)
+        ty = (above + rr * S - 1).clamp(min=0)
         lx = (cc * S - 1).clamp(min=0)
         blocks = orig.reshape(nby, S, nbx, S).permute(0, 2, 1, 3)
-        top = orig[ty[:, None, None],
-                   (cc[None, :, None] * S + ar).clamp(0, W - 1)]
-        left = orig[(rr[:, None, None] * S + ar).clamp(0, H - 1),
-                    lx[None, :, None]]
-        corner = orig[ty[:, None], lx[None]]
+        top = plane[ty[:, None, None],
+                    (cc[None, :, None] * S + ar).clamp(0, W - 1)]
+        left = plane[(above + rr[:, None, None] * S + ar).clamp(0, Hx - 1),
+                     lx[None, :, None]]
+        corner = plane[ty[:, None], lx[None]]
         hl = (cc[None] > 0).expand(nby, nbx)
-        ht = (rr[:, None] > 0).expand(nby, nbx)
+        ht = ((rr[:, None] > 0) | bool(above)).expand(nby, nbx)
         flat = (blocks.reshape(-1, S, S), top.reshape(-1, 2 * S),
                 left.reshape(-1, 2 * S), corner.reshape(-1), hl.reshape(-1),
                 ht.reshape(-1))
@@ -479,175 +492,206 @@ def unpack_intra_wire(wire, H: int, W: int):
             ((units >> 8) & 1), ((units >> 9) & 1), idx, vals)
 
 
-def encode_frame_intra(y_pad, u_pad, v_pad, *, B: int, qp,
-                       strong_smoothing: bool = True,
-                       sign_hiding: bool = False, split_rdo: bool = False,
-                       rd_mode: int = 1, tu_depth: int = 0):
-    """Encode one padded frame all-intra with B x B CTUs: the reference's
-    `encode_frame_intra` at B <= 32 and its `encode_frame_intra_ctu64` at
-    B 64. `rd_mode` (1 FULL, 2 FAST, 0 DIST_ONLY) sets the modes and the
-    lambda of the mode search: pass A's with split RDO, the closed-loop
-    search's without (FAST: the 11-mode subset, no refinement; DIST_ONLY:
-    lambda 0).
+class Wave:
+    """The closed-loop wavefront's state over the CTU rows r0 .. r0 + n - 1
+    of a frame on one device: the whole frame, or one band of it
+    (parallel/intra_bands.py).
 
-    The wavefront runs over CTU anti-diagonals. The largest intra CU is 32:
-    a 64-CTU codes its four 32-blocks one after another in z-order inside
-    the lane, so each reads the reconstruction of the ones before it (the
-    top-left block's left references run down the left CTU's whole right
-    column, its bottom-right samples included; the bottom-right block has
-    no top-right neighbour). Without `split_rdo` a block is CU = TU,
-    closed-loop 35-mode search per block (the FASTEST_COMPUTATION IDR).
-    With it: the CU quadtree down to 8x8 luma (4x4 chroma) decided
-    open-loop by pass A at B 32 and applied closed-loop here, with NxN
-    leaves and, for `tu_depth` >= 1, one level of TU split; unit depths
-    count from the 32-blocks. Chroma follows the luma modes, U and V as one
-    batch. Returns the reference's output dict: modes of the top-level
-    blocks, unit maps, block levels, uint8 recon planes and the compact
-    wire."""
-    H, W = y_pad.shape
-    dev = y_pad.device
-    nby, nbx = H // B, W // B
+    `bot_rows` holds the bottom sample row of every coded CTU of the rows,
+    after one row for the CTU row above the first (luma, Cb and Cr side by
+    side in one int32 row of 2W samples, so that a band takes it from the
+    band above in one copy; zeros at the picture's top, where no lane reads
+    it: has_top is false there); `bot` views its three components. `right`
+    holds the right column of the last CTU coded in each row, `lev` and
+    `rec` the coded blocks (n, nbx, ...). With split RDO, `tree` is these
+    rows of `decided_tree`; without it, `mode_cb` receives the mode of
+    every top-level block."""
+
+    def __init__(self, y, u, v, *, r0: int, B: int, qp, rd_mode: int = 1,
+                 tree=None):
+        dev = self.device = y.device
+        self.r0, self.B = r0, B
+        n, W = self.n, self.W = y.shape[0] // B, y.shape[1]
+        nbx = self.nbx = W // B
+        B2 = B // 2
+        cb = min(B, 32)
+        self.qp = _qp_tensor(qp, dev)
+        self.qp_c = tables.chroma_qp_t(self.qp)
+        lam = const(tables.LAMBDA_FX, dev)[self.qp]
+        self.lam = torch.zeros_like(lam) if rd_mode == 0 else lam
+        self.mode_set = _FAST_MODES if rd_mode == 2 else None
+        self.mlist = const(_mode_list(rd_mode), dev)
+
+        def blocks(p, s):
+            return p.to(I32).reshape(n, s, nbx, s).permute(0, 2, 1, 3)
+
+        def z(*shape):
+            return torch.zeros(shape, dtype=I32, device=dev)
+
+        self.orig = {"y": blocks(y, B), "u": blocks(u, B2),
+                     "v": blocks(v, B2)}
+        self.bot_rows = z(n + 1, 2 * W)
+        self.bot = {"y": self.bot_rows[:, :W],
+                    "u": self.bot_rows[:, W:W + W // 2],
+                    "v": self.bot_rows[:, W + W // 2:]}
+        self.right = {"y": z(n, B), "u": z(n, B2), "v": z(n, B2)}
+        self.lev = {"y": z(n, nbx, B, B), "u": z(n, nbx, B2, B2),
+                    "v": z(n, nbx, B2, B2)}
+        self.rec = {k: torch.zeros_like(t) for k, t in self.lev.items()}
+        self.tree = tree
+        self.mode_cb = (None if tree is not None
+                        else z(n, nbx, B // cb, B // cb))
+
+    def lanes(self, d: int):
+        """(first, last) CTU row of these rows with a lane on diagonal d
+        (the rows r with 0 <= d - 2r < nbx), or None."""
+        lo = max(self.r0, (d - self.nbx + 2) // 2)
+        hi = min(self.r0 + self.n - 1, d // 2)
+        return (lo, hi) if lo <= hi else None
+
+
+def n_diagonals(nby: int, nbx: int) -> int:
+    """Anti-diagonals of the wavefront (skew 2) over nby x nbx CTUs."""
+    return nbx + 2 * (nby - 1)
+
+
+def _per_ctu(m, B: int):
+    """(H/4, W/4) unit map -> (nby, nbx, B/4, B/4)."""
+    k = B // 4
+    h, w = m.shape
+    return m.reshape(h // k, k, w // k, k).permute(0, 2, 1, 3)
+
+
+def decided_tree(maps, B: int, tu_on: bool):
+    """Pass A's unit maps (mode, depth, NxN, TU split) as the quadtree pass
+    B follows, per CTU of size B: (mode, depth, NxN) on the maps' device
+    and (depth, NxN) on the host, the one host copy of the decided tree
+    (which nodes any lane codes)."""
+    mode_u, depth_u, part_u, trd_u = maps
+    eff_depth, eff_nxn = _effective_tree(depth_u, part_u, trd_u, tu_on)
+    mode_blk, depth_blk, nxn_blk = (_per_ctu(m, B) for m in
+                                    (mode_u, eff_depth, eff_nxn))
+    return (mode_blk, depth_blk, nxn_blk, depth_blk.cpu().numpy(),
+            nxn_blk.cpu().numpy())
+
+
+def run_diagonal(wv: Wave, d: int, *, sign_hiding: bool,
+                 strong_smoothing: bool) -> None:
+    """Code the lanes of `wv`'s rows on diagonal d, in place; nothing when
+    they have none. A lane (r, c) reads the bottom row of the CTU row above
+    from column x0 - 1 to x0 + 2B - 1 (CTUs (r-1, c-1) .. (r-1, c+1), coded
+    at diagonals d-3 .. d-1) and its own row's left neighbour."""
+    lanes = wv.lanes(d)
+    if lanes is None:
+        return
+    dev, B, W = wv.device, wv.B, wv.W
     B2 = B // 2
     cb = min(B, 32)                          # top-level coding block
     cb2 = cb // 2
     kids = ((0, 0),) if cb == B else _Z_CHILDREN
-    qp = _qp_tensor(qp, dev)
-    qp_c = tables.chroma_qp_t(qp)
-    lam = const(tables.LAMBDA_FX, dev)[qp]
+    split_rdo = wv.tree is not None
+    rows_h = np.arange(lanes[0], lanes[1] + 1)
+    rs = torch.arange(lanes[0], lanes[1] + 1, device=dev)
+    ls, ls_h = rs - wv.r0, rows_h - wv.r0    # rows of the state
+    cs, cs_h = d - 2 * rs, d - 2 * rows_h
+    nl = len(rows_h)
+    has_top = rs > 0
+    has_left = cs > 0
+    x0 = cs * B
+    cx0 = cs * B2
+    act = np.ones((nl,), bool)
+    bot, right, orig = wv.bot, wv.right, wv.orig
 
-    def blocks(p, s):
-        return p.to(I32).reshape(nby, s, nbx, s).permute(0, 2, 1, 3)
-
-    orig = {"y": blocks(y_pad, B), "u": blocks(u_pad, B2),
-            "v": blocks(v_pad, B2)}
-
-    def z(*shape):
-        return torch.zeros(shape, dtype=I32, device=dev)
-
-    bot = {"y": z(nby, W), "u": z(nby, W // 2), "v": z(nby, W // 2)}
-    right = {"y": z(nby, B), "u": z(nby, B2), "v": z(nby, B2)}
-    lev = {"y": z(nby, nbx, B, B), "u": z(nby, nbx, B2, B2),
-           "v": z(nby, nbx, B2, B2)}
-    rec = {k: torch.zeros_like(t) for k, t in lev.items()}
-
-    def per_ctu(m):                  # (H/4, W/4) -> (nby, nbx, B/4, B/4)
-        return m.reshape(nby, B // 4, nbx, B // 4).permute(0, 2, 1, 3)
-
-    tu_on = bool(tu_depth) and split_rdo
+    # ---- luma: the top-level blocks of the CTU in z-order ----
+    trow, lcol = bot["y"][ls], right["y"][ls]
+    corner = torch.gather(trow, 1, (x0 - 1).clamp(0, W - 1)[:, None])[:, 0]
+    o = orig["y"][ls, cs]
+    lev_l = torch.zeros_like(o)
+    rec_l = torch.zeros_like(o)
     if split_rdo:
-        mode_units, depth_units, part_units, trd_units = _open_loop_maps(
-            y_pad, B=cb, qp=qp, lam_fx=lam,
-            strong_smoothing=strong_smoothing, rd_mode=rd_mode,
-            tu_split=tu_on)
-        eff_depth, eff_nxn = _effective_tree(depth_units, part_units,
-                                             trd_units, tu_on)
-        mode_blk, depth_blk, nxn_blk = (per_ctu(m) for m in
-                                        (mode_units, eff_depth, eff_nxn))
-        # the one host copy of the decided tree: which nodes any lane codes
-        depth_host = depth_blk.cpu().numpy()
-        nxn_host = nxn_blk.cpu().numpy()
-    else:
-        mode_cb = z(nby, nbx, B // cb, B // cb)          # one mode per top-level block
-        mode_set = _FAST_MODES if rd_mode == 2 else None
-        mlist = const(_mode_list(rd_mode), dev)
-        lam_s = torch.zeros_like(lam) if rd_mode == 0 else lam
-
-    two = lambda a: torch.cat([a, a])
-    for d in range(nbx + 2 * (nby - 1)):
-        # lanes: CTU rows r with 0 <= c = d - 2r < nbx
-        r_lo = max(0, (d - nbx + 2) // 2)
-        r_hi = min(nby - 1, d // 2)
-        rs = torch.arange(r_lo, r_hi + 1, device=dev)
-        cs = d - 2 * rs
-        rs_h = np.arange(r_lo, r_hi + 1)
-        cs_h = d - 2 * rs_h
-        nl = r_hi - r_lo + 1
-        has_top = rs > 0
-        has_left = cs > 0
-        rm1 = (rs - 1).clamp(min=0)
-        x0 = cs * B
-        cx0 = cs * B2
-        act = np.ones((nl,), bool)
-
-        # ---- luma: the top-level blocks of the CTU in z-order ----
-        trow, lcol = bot["y"][rm1], right["y"][rs]
-        corner = torch.gather(trow, 1, (x0 - 1).clamp(0, W - 1)[:, None])[:, 0]
-        o = orig["y"][rs, cs]
-        lev_l = torch.zeros_like(o)
-        rec_l = torch.zeros_like(o)
+        mode_blk, depth_blk, nxn_blk, depth_h, nxn_h = wv.tree
+        tree = _Followed(mode_blk[ls, cs], depth_blk[ls, cs],
+                         nxn_blk[ls, cs], depth_h[ls_h, cs_h],
+                         nxn_h[ls_h, cs_h])
+    for hx, hy in kids:
+        cx, cy = hx * cb, hy * cb
+        refs = _child_refs(trow, lcol, corner, rec_l, cx, cy, cb,
+                           has_left, has_top, x0, W)
+        oc = o[:, cy:cy + cb, cx:cx + cb]
         if split_rdo:
-            tree = _Followed(mode_blk[rs, cs], depth_blk[rs, cs],
-                             nxn_blk[rs, cs], depth_host[rs_h, cs_h],
-                             nxn_host[rs_h, cs_h])
-        for hx, hy in kids:
-            cx, cy = hx * cb, hy * cb
-            refs = _child_refs(trow, lcol, corner, rec_l, cx, cy, cb,
-                               has_left, has_top, x0, W)
-            oc = o[:, cy:cy + cb, cx:cx + cb]
-            if split_rdo:
-                lv, rc = _follow_unit(
-                    oc, refs, _child_aux(trow, lcol, rec_l, cx, cy, cb, x0, B),
-                    tree, cy // 4, cx // 4, act, size=cb, depth=0,
-                    min_size=8, c_idx=0, qp=qp, sign_hiding=sign_hiding,
-                    strong_smoothing=strong_smoothing, W=W)
-            else:
-                lv35, rc35, cost = encode_block_all_modes(
-                    oc, *refs, size=cb, c_idx=0, qp=qp, lam_fx=lam_s,
-                    strong_smoothing=strong_smoothing,
-                    sign_hiding=sign_hiding, mode_set=mode_set)
-                mi = first_argmin(cost, 1)
-                lanes = torch.arange(nl, device=dev)
-                lv, rc = lv35[lanes, mi], rc35[lanes, mi]
-                mode_cb[rs, cs, hy, hx] = mlist[mi].to(I32)
-            lev_l[:, cy:cy + cb, cx:cx + cb] = lv
-            rec_l[:, cy:cy + cb, cx:cx + cb] = rc
-        out = {"y": (lev_l, rec_l)}
-
-        # ---- chroma: the same blocks at half size following the luma
-        # modes, U and V as one batch of 2 * nl lanes ----
-        if split_rdo:
-            tree_c = _Followed(
-                two(tree.mode[:, ::2, ::2]), two(tree.depth[:, ::2, ::2]),
-                None, np.concatenate([tree.depth_h[:, ::2, ::2]] * 2), None)
-        else:
-            k = cb2 // 4                     # chroma units per block side
-            m_u = mode_cb[rs, cs].repeat_interleave(k, 1).repeat_interleave(
-                k, 2)
-            tree_c = _Followed(two(m_u), two(torch.zeros_like(m_u)), None,
-                               np.zeros((2 * nl,) + m_u.shape[1:], np.int32),
-                               None)
-        trow_c = torch.cat([bot["u"][rm1], bot["v"][rm1]])
-        lcol_c = torch.cat([right["u"][rs], right["v"][rs]])
-        x0_c = two(cx0)
-        corner_c = torch.gather(
-            trow_c, 1, (x0_c - 1).clamp(0, W // 2 - 1)[:, None])[:, 0]
-        o_c = torch.cat([orig["u"][rs, cs], orig["v"][rs, cs]])
-        lev_c = torch.zeros_like(o_c)
-        rec_c = torch.zeros_like(o_c)
-        for hx, hy in kids:
-            cx, cy = hx * cb2, hy * cb2
-            refs = _child_refs(trow_c, lcol_c, corner_c, rec_c, cx, cy, cb2,
-                               two(has_left), two(has_top), x0_c, W // 2)
             lv, rc = _follow_unit(
-                o_c[:, cy:cy + cb2, cx:cx + cb2], refs,
-                _child_aux(trow_c, lcol_c, rec_c, cx, cy, cb2, x0_c, B2),
-                tree_c, cy // 4, cx // 4, np.ones((2 * nl,), bool), size=cb2,
-                depth=0, min_size=4 if split_rdo else cb2, c_idx=1, qp=qp_c,
-                sign_hiding=sign_hiding, strong_smoothing=False, W=W // 2)
-            lev_c[:, cy:cy + cb2, cx:cx + cb2] = lv
-            rec_c[:, cy:cy + cb2, cx:cx + cb2] = rc
-        out["u"] = (lev_c[:nl], rec_c[:nl])
-        out["v"] = (lev_c[nl:], rec_c[nl:])
+                oc, refs, _child_aux(trow, lcol, rec_l, cx, cy, cb, x0, B),
+                tree, cy // 4, cx // 4, act, size=cb, depth=0,
+                min_size=8, c_idx=0, qp=wv.qp, sign_hiding=sign_hiding,
+                strong_smoothing=strong_smoothing, W=W)
+        else:
+            lv35, rc35, cost = encode_block_all_modes(
+                oc, *refs, size=cb, c_idx=0, qp=wv.qp, lam_fx=wv.lam,
+                strong_smoothing=strong_smoothing,
+                sign_hiding=sign_hiding, mode_set=wv.mode_set)
+            mi = first_argmin(cost, 1)
+            lanes_i = torch.arange(nl, device=dev)
+            lv, rc = lv35[lanes_i, mi], rc35[lanes_i, mi]
+            wv.mode_cb[ls, cs, hy, hx] = wv.mlist[mi].to(I32)
+        lev_l[:, cy:cy + cb, cx:cx + cb] = lv
+        rec_l[:, cy:cy + cb, cx:cx + cb] = rc
+    out = {"y": (lev_l, rec_l)}
 
-        for key, n, xs in (("y", B, x0), ("u", B2, cx0), ("v", B2, cx0)):
-            lv, rc = out[key]
-            lev[key][rs, cs] = lv
-            rec[key][rs, cs] = rc
-            cols = xs[:, None] + torch.arange(n, device=dev)
-            bot[key][rs[:, None], cols] = rc[:, -1, :]
-            right[key][rs] = rc[:, :, -1]
-
+    # ---- chroma: the same blocks at half size following the luma
+    # modes, U and V as one batch of 2 * nl lanes ----
+    two = lambda a: torch.cat([a, a])
     if split_rdo:
+        tree_c = _Followed(
+            two(tree.mode[:, ::2, ::2]), two(tree.depth[:, ::2, ::2]),
+            None, np.concatenate([tree.depth_h[:, ::2, ::2]] * 2), None)
+    else:
+        k = cb2 // 4                     # chroma units per block side
+        m_u = wv.mode_cb[ls, cs].repeat_interleave(k, 1).repeat_interleave(
+            k, 2)
+        tree_c = _Followed(two(m_u), two(torch.zeros_like(m_u)), None,
+                           np.zeros((2 * nl,) + m_u.shape[1:], np.int32),
+                           None)
+    trow_c = torch.cat([bot["u"][ls], bot["v"][ls]])
+    lcol_c = torch.cat([right["u"][ls], right["v"][ls]])
+    x0_c = two(cx0)
+    corner_c = torch.gather(
+        trow_c, 1, (x0_c - 1).clamp(0, W // 2 - 1)[:, None])[:, 0]
+    o_c = torch.cat([orig["u"][ls, cs], orig["v"][ls, cs]])
+    lev_c = torch.zeros_like(o_c)
+    rec_c = torch.zeros_like(o_c)
+    for hx, hy in kids:
+        cx, cy = hx * cb2, hy * cb2
+        refs = _child_refs(trow_c, lcol_c, corner_c, rec_c, cx, cy, cb2,
+                           two(has_left), two(has_top), x0_c, W // 2)
+        lv, rc = _follow_unit(
+            o_c[:, cy:cy + cb2, cx:cx + cb2], refs,
+            _child_aux(trow_c, lcol_c, rec_c, cx, cy, cb2, x0_c, B2),
+            tree_c, cy // 4, cx // 4, np.ones((2 * nl,), bool), size=cb2,
+            depth=0, min_size=4 if split_rdo else cb2, c_idx=1, qp=wv.qp_c,
+            sign_hiding=sign_hiding, strong_smoothing=False, W=W // 2)
+        lev_c[:, cy:cy + cb2, cx:cx + cb2] = lv
+        rec_c[:, cy:cy + cb2, cx:cx + cb2] = rc
+    out["u"] = (lev_c[:nl], rec_c[:nl])
+    out["v"] = (lev_c[nl:], rec_c[nl:])
+
+    for key, n, xs in (("y", B, x0), ("u", B2, cx0), ("v", B2, cx0)):
+        lv, rc = out[key]
+        wv.lev[key][ls, cs] = lv
+        wv.rec[key][ls, cs] = rc
+        cols = xs[:, None] + torch.arange(n, device=dev)
+        bot[key][(ls + 1)[:, None], cols] = rc[:, -1, :]
+        right[key][ls] = rc[:, :, -1]
+
+
+def intra_result(lev, rec, *, B: int, maps=None, mode_cb=None) -> dict:
+    """The reference's output dict of an intra frame from its coded blocks
+    (`lev`, `rec`: per component (nby, nbx, ...)) and pass A's unit maps
+    (split RDO) or the modes of the top-level blocks `mode_cb`: modes of
+    the top-level blocks, unit maps, block levels, uint8 recon planes, and
+    the compact wire, packed from the whole frame's planes."""
+    cb = min(B, 32)
+    if maps is not None:
+        mode_units, depth_units, part_units, trd_units = maps
         modes = mode_units[::cb // 4, ::cb // 4]
         part_units = part_units.to(I32)
     else:
@@ -668,3 +712,46 @@ def encode_frame_intra(y_pad, u_pad, v_pad, *, B: int, qp,
         to_plane(lev["y"]), to_plane(lev["u"]), to_plane(lev["v"]),
         mode_units, depth_units, part_units, trd_units)
     return res
+
+
+def encode_frame_intra(y_pad, u_pad, v_pad, *, B: int, qp,
+                       strong_smoothing: bool = True,
+                       sign_hiding: bool = False, split_rdo: bool = False,
+                       rd_mode: int = 1, tu_depth: int = 0):
+    """Encode one padded frame all-intra with B x B CTUs: the reference's
+    `encode_frame_intra` at B <= 32 and its `encode_frame_intra_ctu64` at
+    B 64. `rd_mode` (1 FULL, 2 FAST, 0 DIST_ONLY) sets the modes and the
+    lambda of the mode search: pass A's with split RDO, the closed-loop
+    search's without (FAST: the 11-mode subset, no refinement; DIST_ONLY:
+    lambda 0).
+
+    The wavefront runs over CTU anti-diagonals (`run_diagonal`). The
+    largest intra CU is 32: a 64-CTU codes its four 32-blocks one after
+    another in z-order inside the lane, so each reads the reconstruction of
+    the ones before it (the top-left block's left references run down the
+    left CTU's whole right column, its bottom-right samples included; the
+    bottom-right block has no top-right neighbour). Without `split_rdo` a
+    block is CU = TU, closed-loop 35-mode search per block (the
+    FASTEST_COMPUTATION IDR). With it: the CU quadtree down to 8x8 luma
+    (4x4 chroma) decided open-loop by pass A at B 32 and applied
+    closed-loop here, with NxN leaves and, for `tu_depth` >= 1, one level
+    of TU split; unit depths count from the 32-blocks. Chroma follows the
+    luma modes, U and V as one batch. Returns `intra_result`'s dict."""
+    H, W = y_pad.shape
+    dev = y_pad.device
+    qp = _qp_tensor(qp, dev)
+    tu_on = bool(tu_depth) and split_rdo
+    maps = tree = None
+    if split_rdo:
+        maps = _open_loop_maps(
+            y_pad, B=min(B, 32), qp=qp,
+            lam_fx=const(tables.LAMBDA_FX, dev)[qp],
+            strong_smoothing=strong_smoothing, rd_mode=rd_mode,
+            tu_split=tu_on)
+        tree = decided_tree(maps, B, tu_on)
+    wv = Wave(y_pad, u_pad, v_pad, r0=0, B=B, qp=qp, rd_mode=rd_mode,
+              tree=tree)
+    for d in range(n_diagonals(H // B, W // B)):
+        run_diagonal(wv, d, sign_hiding=sign_hiding,
+                     strong_smoothing=strong_smoothing)
+    return intra_result(wv.lev, wv.rec, B=B, maps=maps, mode_cb=wv.mode_cb)

@@ -42,7 +42,8 @@ tests/test_multihost.py): runs with `mesh` = n go through a session with a
 band mesh of n devices (in the JAX package a jax Mesh of n of the test
 conftest's 8 virtual CPU devices; in the port ["cpu"] * n), the
 `mesh_wpp_shards_small` run through wpp_shards = 4; the tool records them
-from the JAX session with and without its mesh, asserting the two equal.
+from the JAX session with and without its mesh, asserting the two equal
+(the session on a mesh codes every frame in bands: IDR, P and B).
 Runs with `per_frame` go through encode_frame frame by frame; runs with
 `seeded` start from their first frame as the reference (seed_reference,
 poc 1) and code the others as P frames, no IDR. The `mh_*`
@@ -259,6 +260,22 @@ RUNS = {
     "mesh_intra_p_odd_small": dict(width=160, height=160, frames=6, seed=0,
                                    chunk=3, seeded=True, mesh=4,
                                    config="plain"),
+    # the IDR and the B frames in bands: IBP in FAST (the split-RDO IDR in
+    # bands of 2, 1, 1, 1 CTU rows; the hierarchical B search, search 64,
+    # on bands shorter than its 72-row halo); all-intra in rd_mode FAST
+    # (pass A's refinement and pass B across bands in every frame, a band
+    # starting at the odd CTU row 3); ibp_scene_small's scene-cut IDR,
+    # re-encoded in bands beside a waiting B
+    "mesh_ibp_fast_small": dict(width=128, height=160, frames=6, seed=2,
+                                chunk=3, push=True, mesh=4, config="fast",
+                                over=dict(gop_size=2)),
+    "mesh_allintra_rdfast_small": dict(width=160, height=160, frames=3,
+                                       seed=1, chunk=3, mesh=4,
+                                       config="fast", over=dict(
+                                           intra_period=1, rd_mode="FAST")),
+    "mesh_ibp_scene_small": dict(width=128, height=96, frames=6, seed=3,
+                                 chunk=3, push=True, cut=4, mesh=4,
+                                 over=dict(gop_size=2)),
     # the two-process GopPipeline's streams (span 4; the IDR at POC 6 falls
     # inside the second span)
     **{f"mh_ip{ip}_small": dict(width=128, height=64, frames=8, seed=3,

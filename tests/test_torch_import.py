@@ -51,6 +51,7 @@ PORT_MODULES = [
     "homerhevc_tpu_torch.pipeline.assemble",
     "homerhevc_tpu_torch.parallel",
     "homerhevc_tpu_torch.parallel.sharded",
+    "homerhevc_tpu_torch.parallel.intra_bands",
     "homerhevc_tpu_torch.parallel.multihost",
     "homerhevc_tpu_torch.utils.synth",
     "homerhevc_tpu_torch.utils.fixtures",

@@ -21,7 +21,12 @@ and the session's band mesh) against the JAX package on the CPU.
     its halo, CBR without WPP, CTU 32 with a band at an odd CTU row) and
     with wpp_shards 4 write the JAX package's AUs (fixture hashes, recorded
     from the JAX session with and without its mesh), and every P frame ran
-    in bands, fixed-CU or quadtree;
+    in bands, fixed-CU or quadtree; so do IBP in FAST (the split-RDO IDR
+    and the hierarchical B search in bands shorter than its halo),
+    all-intra in rd_mode FAST and IBP with a scene cut beside a waiting B,
+    and every IDR (scene cuts included) and every B frame of a mesh run
+    went through the band functions (parallel/intra_bands.py,
+    sharded.b_frame_bands), none through the single-device ones;
   * the quadtree stage in bands equals p_frame_tree_device on every output
     (CTU 32 and 64, FULL, search 8, 16 and 64, row QPs with and without
     WPP, intra-in-P), and so does the chunk in bands (p_chunk_device on a
@@ -57,8 +62,9 @@ from homerhevc_tpu_torch.api import HomerEncoder, check_slice
 from homerhevc_tpu_torch.kernels.build import CudaKernel
 from homerhevc_tpu_torch.ops import deblock as dbk
 from homerhevc_tpu_torch.ops import sao as sao_ops
-from homerhevc_tpu_torch.parallel import sharded
-from homerhevc_tpu_torch.pipeline import p_chunk, p_torch
+from homerhevc_tpu_torch.parallel import intra_bands, sharded
+from homerhevc_tpu_torch.pipeline import (b_torch, intra_torch, p_chunk,
+                                           p_torch)
 from homerhevc_tpu_torch.utils.synth import synth_clip
 from homerhevc_tpu_torch.utils import fixtures as fx
 from test_torch_ctu64 import one_torch_thread  # noqa: F401 (autouse)
@@ -190,6 +196,16 @@ def test_sharded_mesh_rows_must_be_equal():
                                      me_precision=2)
 
 
+def _is_idr(au: bytes) -> bool:
+    """Whether an AU's coded slice is an IDR (NAL type IDR_W_RADL)."""
+    i = 0
+    while True:
+        i = au.index(b"\x00\x00\x01", i) + 3
+        nal_type = (au[i] >> 1) & 63
+        if nal_type < 32:                      # the first VCL NAL unit
+            return nal_type == 19
+
+
 @pytest.mark.parametrize("name", MESH_RUNS)
 def test_mesh_session_matches_jax_fixture(name, fixture, monkeypatch):
     r = fx.RUNS[name]
@@ -197,6 +213,21 @@ def test_mesh_session_matches_jax_fixture(name, fixture, monkeypatch):
     calls, outs, starts = [], [], []
     stages = {"fixed": sharded._band_stage, "tree": sharded._band_stage_tree}
     finish = p_torch.tree_finish
+    # the IDR and the B stage: in bands, or on one device
+    frame_calls = []
+    for mod, fn, kind in ((intra_bands, "intra_frame_bands", "idr bands"),
+                          (intra_torch, "encode_frame_intra", "idr one"),
+                          (sharded, "b_frame_bands", "b bands"),
+                          (b_torch, "b_frame_device", "b one")):
+        def frame_fn(*args, _f=getattr(mod, fn), _k=kind, **kw):
+            frame_calls.append((_k, args[0] if _k.endswith("bands")
+                                else None))
+            return _f(*args, **kw)
+        monkeypatch.setattr(mod, fn, frame_fn)
+    b_frames = []
+    encode_b = HomerEncoder._encode_b
+    monkeypatch.setattr(HomerEncoder, "_encode_b", lambda self, *a: (
+        b_frames.append(a[0][0]), encode_b(self, *a))[1])
 
     def counted(kind):
         def stage(cur, *args, **kw):
@@ -219,16 +250,33 @@ def test_mesh_session_matches_jax_fixture(name, fixture, monkeypatch):
     aus = fx.encode_run(enc, name)
     enc.close()
     assert fx.au_digest(aus) == fixture[name]["aus"]
+    n_idr = sum(map(_is_idr, aus))
     if not mesh:
         assert not calls                 # no mesh without the devices
+        assert [k for k, _ in frame_calls] == ["idr one"] * n_idr
         return
+    # every IDR (scene cuts included) and every B frame ran in bands, on the
+    # session's mesh, and none on one device
+    kinds = [k for k, _ in frame_calls]
+    assert kinds.count("idr bands") == n_idr
+    assert n_idr or r.get("seeded")
+    assert kinds.count("b bands") == len(b_frames)
+    assert len(kinds) == n_idr + len(b_frames)
+    assert all(len(m) == r["mesh"] for _, m in frame_calls)
+    if r.get("push") and cfg.gop_size >= 2:
+        assert b_frames
     # every P frame's stage ran in bands: the quadtree in FAST and FULL,
-    # the fixed-CU grid in FASTEST and FASTER (and IBP's explicit P frames)
+    # the fixed-CU grid in FASTEST and FASTER and in IBP's explicit P
+    # frames
     kind = ("fixed" if cfg.performance_mode.name in (
         "FASTEST_COMPUTATION", "FASTER_COMPUTATION") else "tree")
     bands = len(sharded.band_heights(cfg.padded_height // cfg.cu_size,
                                      r["mesh"]))
-    assert calls and set(calls) == {(kind, bands)}
+    if cfg.intra_period == 1:                  # all-intra: no P frame
+        assert not calls and n_idr == len(aus)
+        return
+    explicit = {("fixed", bands)} if r.get("push") else set()
+    assert {(kind, bands)} <= set(calls) <= {(kind, bands)} | explicit
     if r.get("seeded") and not r.get("push"):
         assert len(calls) == r["frames"] - 1       # no IDR, no scene cut
     if name == "mesh_hier_small":
