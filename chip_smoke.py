@@ -11,12 +11,14 @@ Phases, each of which raises on failure (non-zero exit, no result line):
   3. kernels — each kernel against its plain PyTorch version, exact
                equality: me_sad on real, random and all-tie data, from
                uint8 and int16 planes, at 736x1280 (B 32, S 16), at
-               768x1280 (B 64, S 16), at the small fixture clips' shapes
-               and at search 8; gather_win on real and random data with
+               768x1280 (B 64, S 16), at 720x1280 (B 16, S 16, nb 3,600:
+               the CTU-16 paths' B-16 tile), at the small fixture clips'
+               shapes and at search 8; gather_win on real and random data with
                planted out-of-range starts, from uint8 and int16 planes, at
                every call site of every path at both sizes: the fixed-CU
                path's luma window and chroma pair (one launch) at CU 32 (G
-               41, 19) and CU 64 (G 73, 35), and the quadtree path's refine
+               41, 19), CU 64 (G 73, 35) and CU 16 (G 25, 11; nb 3,600 at
+               720x1280), and the quadtree path's refine
                window of the hierarchical search, luma window and chroma
                pair at CU 8 (G 14, 17, 7), 16 (22, 25, 11), 32 (38, 41, 19)
                and 64 (70, 73, 35); at 1088x1920 (1080p, nb 2,040), me_sad
@@ -72,8 +74,15 @@ Phases, each of which raises on failure (non-zero exit, no result line):
                    rd_mode=FAST, sample_adaptive_offset=False,
                    intra_period=1): one split-RDO IDR, no launch; its small
                    clips are all-intra in every rd_mode at CTU 32 and 64;
-                 ibp_fastest_720p, ibp_fast_720p: fastest_720p's and
-                   fast_720p's configurations with gop_size 2 on
+                 fastest16_720p, faster16_720p: FASTEST and FASTER at
+                   cu_size 16, search 16 (the IDR at CU = TU = 16, or the
+                   split-RDO IDR on 80 x 45 16-CTUs; the fixed-CU P stage
+                   at B 16); me_sad 1, gather_win 2; their streams drift
+                   in a decoder (fault 2 of the reference), which a
+                   libde265 check, where it runs, must find;
+                 ibp_fastest_720p, ibp_fast_720p, ibp_fastest16_720p:
+                   fastest_720p's, fast_720p's and fastest16_720p's
+                   configurations with gop_size 2 on
                    synth_clip(1280, 720, 10) through push_frame / flush (I0
                    P2 B1 P4 B3 P6 B5 P8 B7, the explicit P9 at flush);
                    launches asserted per frame type (IBP_PATHS);
@@ -115,12 +124,13 @@ Phases, each of which raises on failure (non-zero exit, no result line):
                ibp_fast_720p's, search 64) against b_frame_device, wire
                included, with and without the kernels, launches asserted,
                timed; the IDR in bands (INTRA_BAND_STEPS): pass A in rd
-               FULL and FAST against its whole-frame maps, the fixed-CU IDR
-               at B 32 and 64 with deblocking and SAO against
-               encode_frame_intra and the single-device filter, timed;
-               fastest_720p, fastest64_720p, fast_720p, default_720p and
-               full64_720p again with mesh=[card] * 4 (bands of 6, 6, 6, 5
-               and 3, 3, 3, 3 CTU rows; every frame in bands: the IDR,
+               FULL and FAST and, at B 16, FULL against its whole-frame
+               maps, the fixed-CU IDR at B 16, 32 and 64 with deblocking
+               and SAO against encode_frame_intra and the single-device
+               filter, timed; fastest_720p, fastest64_720p, fast_720p,
+               default_720p, full64_720p and fastest16_720p again with
+               mesh=[card] * 4 (bands of 6, 6, 6, 5, of 3, 3, 3, 3 and of
+               12, 11, 11, 11 CTU rows; every frame in bands: the IDR,
                fast_720p's split-RDO IDR included, and the stage,
                deblocking and SAO of every P frame; launches per P frame
                the path's times 4; default_720p and full64_720p from their
@@ -137,8 +147,9 @@ Phases, each of which raises on failure (non-zero exit, no result line):
                fastest_720p's configuration with an IDR every 6 frames, span
                4, 9 frames; both stitched streams must equal the
                single-process session's
-  6. timing  — after warm-up: 16 P frames end to end on the fixed-CU path,
-               8 on each quadtree path (CTU 32 and 64); a P chunk's device
+  6. timing  — after warm-up: 16 P frames end to end on the fixed-CU paths
+               (CTU 32 and 16), 8 on each quadtree path (CTU 32 and 64)
+               and on faster16_720p; a P chunk's device
                stage on each; the fixed-CU IDR's device stage, warm, and a
                split-RDO IDR's pass A alone, warm (phase 4 printed each
                IDR's first time, pass B being all but pass A: a split-RDO
@@ -627,11 +638,13 @@ def time_gather(dev, name, plane, by, bx, G):
     return t
 
 
-def phase_kernels(dev, frames, small_frames, small64_frames, frames1080):
+def phase_kernels(dev, frames, small_frames, small64_frames, frames1080,
+                  small16_frames):
     """Kernel vs plain at the 720p call sites of every path (CTU 32 at
-    736x1280, CTU 64 at 768x1280), the fixed-CU path's sites at 1080p
-    (1088x1920, nb 2,040), the small fixture clips' shapes and search 8;
-    times and bounds at 720p and 1080p. Returns per-kernel records."""
+    736x1280, CTU 64 at 768x1280, CTU 16 at 720x1280), the fixed-CU path's
+    sites at 1080p (1088x1920, nb 2,040), the small fixture clips' shapes
+    and search 8; times and bounds at 720p and 1080p. Returns per-kernel
+    records."""
     import torch
 
     from homerhevc_tpu_torch.ops import gather, me
@@ -648,6 +661,15 @@ def phase_kernels(dev, frames, small_frames, small64_frames, frames1080):
     me_err = max(me_err, err)
     small64, err = check_me(dev, small64_frames, 128, 192, 64, S,
                             "128x192, B=64, S=16")
+    me_err = max(me_err, err)
+    # CTU 16: the fixed-CU P stage's B-16 tile at 720p (45 x 80 blocks, nb
+    # 3,600) and on the CTU-16 small clips' padded 128x96
+    H16 = 720
+    cases16, err = check_me(dev, frames, H16, W, 16, S,
+                            "720x1280, B=16, S=16")
+    me_err = max(me_err, err)
+    small16, err = check_me(dev, small16_frames, 96, 128, 16, S,
+                            "96x128, B=16, S=16")
     me_err = max(me_err, err)
     # search 8, and other block sizes: the compile-time B=16 path and the
     # any-B kernel
@@ -666,7 +688,8 @@ def phase_kernels(dev, frames, small_frames, small64_frames, frames1080):
 
     me_sites = [time_me(dev, *cases["real uint8"], H, W, B, S),
                 time_me(dev, *cases64["real uint8"], H64, W, 64, S),
-                time_me(dev, *cases1080["real uint8"], H1, W1, B, S)]
+                time_me(dev, *cases1080["real uint8"], H1, W1, B, S),
+                time_me(dev, *cases16["real uint8"], H16, W, 16, S)]
     records = {"me_sad": dict(
         name="me_sad", route="cuda", source=me.ME_SAD.source,
         replaces="homerhevc_tpu/ops/me_pallas.py:27", max_abs_err=me_err,
@@ -703,6 +726,19 @@ def phase_kernels(dev, frames, small_frames, small64_frames, frames1080):
         dev, frames1080[0], best, H1, W1, B, S).items()}
     gw_err = max(gw_err, check_gather(dev, sites1080, "1088x1920, fixed CU"))
     sites.update(sites1080)
+    # the fixed-CU path at CU 16: luma G 25 and the G 11 pair, nb 3,600
+    cur, ref, mc = cases16["real uint8"]
+    _, best = me.integer_me_plain(cur, ref, mc, B=16, search=S, pad=PAD)
+    sites16 = {f"CU 16 {k}": v for k, v in gather_sites(
+        dev, frames[0], best, H16, W, 16, S).items()}
+    gw_err = max(gw_err, check_gather(dev, sites16, "720x1280, fixed CU 16"))
+    cur_s, ref_s, mc_s = small16["real uint8"]
+    _, best_s = me.integer_me_plain(cur_s, ref_s, mc_s, B=16, search=S,
+                                    pad=PAD)
+    gw_err = max(gw_err, check_gather(
+        dev, gather_sites(dev, small16_frames[0], best_s, 96, 128, 16, S),
+        "96x128, fixed CU 16"))
+    sites.update(sites16)
     # the quadtree path's sites, search 64 (frame 1 against frame 0): CU 16
     # and 32 at CTU 32, CU 8 and 64 at CTU 64
     for h, w, fr, sizes, label in (
@@ -767,6 +803,20 @@ PATHS = {
         small=("allintra_rd0_small", "allintra_rd1_small",
                "allintra_rd2_small", "allintra64_rd0_small",
                "allintra64_rd1_small", "allintra64_rd2_small")),
+    # CTU 16: FASTEST (the fixed-CU IDR at B 16) and FASTER (the split-RDO
+    # IDR on 16-CTUs), each with the fixed-CU P stage at B 16 (me_sad's
+    # B-16 tile, gather_win G 25 and the G 11 pair); their streams drift in
+    # a decoder (fault 2 of the reference), so the libde265 check, where it
+    # runs, must find the drift
+    "fastest16_720p": dict(run="fastest16_720p", frames=9, me_sad=1,
+                           gather_win=2, drifts=True,
+                           small=("fastest16_small", "vbr_fastest16_small",
+                                  "fastest16_s64_small")),
+    "faster16_720p": dict(run="faster16_720p", frames=9, me_sad=1,
+                          gather_win=2, drifts=True,
+                          small=("faster16_rd0_small", "faster16_rd1_small",
+                                 "faster16_rd2_small", "faster16_tr0_small",
+                                 "cbr_wpp_faster16_small")),
 }
 
 # IBP (gop_size 2) through push_frame / flush: I0 P2 B1 P4 B3 P6 B5 P8 B7,
@@ -783,6 +833,10 @@ IBP_PATHS = {
     "ibp_fast_720p": dict(
         run="ibp_fast_720p", frames=10, small="ibp_fast_small",
         per_type=dict(idr=(0, 0), anchor=(0, 6), b=(0, 6), explicit=(0, 3))),
+    "ibp_fastest16_720p": dict(
+        run="ibp_fastest16_720p", frames=10,
+        small=("ibp_fastest16_small", "ibp_faster16_s64_small"),
+        per_type=dict(idr=(0, 0), anchor=(1, 2), b=(2, 4), explicit=(1, 2))),
 }
 
 
@@ -895,6 +949,13 @@ def run_path(dev, name, fixture, seeds, mesh=None, idr=None):
                                   enc._ref[0].cpu().numpy()[:720, :1280])
         if decoded is None:
             log("  libde265 decode check: not run (libde265 does not load)")
+        elif path.get("drifts"):
+            if decoded:
+                raise AssertionError("libde265 decode == the port's recon: "
+                                     "fault 2 of the reference no longer "
+                                     "shows")
+            log("  libde265 decode check: ran, last frame != port recon "
+                "(fault 2 of the reference, as the JAX package's stream)")
         elif not decoded:
             raise AssertionError("libde265 decode != the port's recon")
         else:
@@ -1329,6 +1390,10 @@ INTRA_BAND_STEPS = {
     "pass_a_720p_rd2": dict(kind="pass_a", B=32, rd_mode=2),
     "idr_fixed_720p_b32": dict(kind="idr", B=32),
     "idr_fixed_720p_b64": dict(kind="idr", B=64),
+    # CTU 16: 45 CTU rows in bands of 12, 11, 11, 11 (the second band starts
+    # at row 192, the third at 368, 16 rows off the IDR's 32-row TU grid)
+    "pass_a_720p_b16_rd1": dict(kind="pass_a", B=16, rd_mode=1),
+    "idr_fixed_720p_b16": dict(kind="idr", B=16),
 }
 # the session paths of phase 4 run again on a mesh of the card named 4
 # times: fastest_720p and fast_720p cut 23 CTU rows into bands of 6, 6, 6,
@@ -1339,8 +1404,9 @@ INTRA_BAND_STEPS = {
 # phase 4 (full64_720p from default_720p's), and their small clips code the
 # CTU-64 split-RDO IDR in bands
 MESH_PATHS = ("fastest_720p", "fastest64_720p", "fast_720p", "default_720p",
-              "full64_720p")
-MESH_IDR_PATHS = ("fastest_720p", "fastest64_720p", "fast_720p")
+              "full64_720p", "fastest16_720p")
+MESH_IDR_PATHS = ("fastest_720p", "fastest64_720p", "fast_720p",
+                  "fastest16_720p")
 MESH_BANDS = 4
 # the two-process GopPipeline: fastest_720p's configuration with an IDR
 # every 6 frames, spans of 4, 9 frames (the IDR at POC 6 falls inside the
@@ -1708,11 +1774,11 @@ def run_intra_band_steps(dev, card: str) -> None:
 
             def bands():
                 parts = intra_bands.open_loop_maps_bands(
-                    planes[0], rows, devs, qp=qp, **kw)
+                    planes[0], rows, devs, qp=qp, B=B, **kw)
                 return [torch.cat([p[k] for p in parts]) for k in range(4)]
 
             def single():
-                return intra_torch._open_loop_maps(planes[0], B=32, qp=qp_t,
+                return intra_torch._open_loop_maps(planes[0], B=B, qp=qp_t,
                                                    lam_fx=lam, **kw)
             reps = 2
         else:
@@ -2041,8 +2107,8 @@ def pass_a_timing(dev, name, y, cfg, tu_split: bool, card: str,
     parts = []
     for rd in rd_modes or (int(cfg.rd_mode),):
         ms_a = synced_ms(lambda: intra_torch._open_loop_maps(
-            y, B=32, qp=qp_t, lam_fx=lam, strong_smoothing=True,
-            rd_mode=rd, tu_split=tu_split), 2)
+            y, B=min(cfg.cu_size, 32), qp=qp_t, lam_fx=lam,
+            strong_smoothing=True, rd_mode=rd, tu_split=tu_split), 2)
         parts.append(f"rd_mode {rd} {ms_a:.1f} ms")
     log(f"  {name}: IDR pass A (open-loop decisions, warm, timed alone): "
         f"{', '.join(parts)} on {card}")
@@ -2092,7 +2158,7 @@ def main() -> int:
     frames = clip("720p")
     log("[3/6] kernels vs plain (exact equality):")
     records = phase_kernels(dev, frames, clip("small"), clip("default_small"),
-                            clip(CLI_PATH)[:2])
+                            clip(CLI_PATH)[:2], clip("fastest16_small"))
     phase_band_sites(dev, records)
 
     log("[4/6] main paths at 1280x720:")
@@ -2118,7 +2184,8 @@ def main() -> int:
 
     log("[6/6] timing:")
     for name, n_p in (("fastest_720p", 16), ("fast_720p", 8),
-                      ("default_720p", 8)):
+                      ("default_720p", 8), ("fastest16_720p", 16),
+                      ("faster16_720p", 8)):
         phase_timing(dev, name, n_p, by_path[name][1], card)
     run = PATHS["allintra_rdfast64_720p"]["run"]
     y = torch.as_tensor(pad_plane(clip(run)[0][0], 768, 1280), device=dev)

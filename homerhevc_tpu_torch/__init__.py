@@ -10,19 +10,21 @@ merge/AMVP derivations, synthetic clips, libde265 validation), under the
 same names and layout. Only the tests import both packages.
 
 Supported (what `api.check_slice` admits): cu_size 32 and 64 in every
-performance mode — FASTEST_COMPUTATION (IDR at CU = TU = 32, fixed-CU P
-frames), FASTER_COMPUTATION (split-RDO IDR, fixed-CU P frames),
+performance mode — FASTEST_COMPUTATION (IDR at CU = TU = min(CTU, 32),
+fixed-CU P frames), FASTER_COMPUTATION (split-RDO IDR, fixed-CU P frames),
 FAST_COMPUTATION (split-RDO IDR, inter CU quadtree P frames with
 hierarchical ME, inter TU split and intra-in-P at CTU 32) and
-FULL_COMPUTATION (the quadtree down to 8x8 inter CUs); fixed QP, CBR or VBR
-(per-CTU-row QPs on the quadtree path); WPP or not; every rd_mode (FULL,
-FAST, DIST_ONLY); all-intra (intra_period 1); and B frames (gop_size >= 2:
-IBP through push_frame / flush) at cu_size 32; several devices: a band
-mesh (`HomerEncoder(mesh=...)`, or `wpp_shards` > 1 where the machine has
-that many CUDA devices) runs the fixed-CU P stages in bands, and the
+FULL_COMPUTATION (the quadtree down to 8x8 inter CUs) — and cu_size 16 in
+FASTEST and FASTER; fixed QP, CBR or VBR (per-CTU-row QPs on the quadtree
+path); WPP or not; every rd_mode (FULL, FAST, DIST_ONLY); all-intra
+(intra_period 1); and B frames (gop_size >= 2: IBP through push_frame /
+flush) at cu_size 16 and 32; several devices: a band mesh
+(`HomerEncoder(mesh=...)`, or `wpp_shards` > 1 where the machine has that
+many CUDA devices) runs every frame in bands of CTU rows, and the
 GopPipeline spreads frame spans over processes (torch.distributed, gloo).
-cu_size 16, B frames at cu_size 64 and bit_depth != 8 raise
-NotImplementedError naming the setting.
+FAST and FULL at cu_size 16 (the JAX package fails there), B frames at
+cu_size 64 and bit_depth != 8 raise NotImplementedError naming the
+setting.
 
 Layer map:
   app.py                  — the console app (homer_app_torch.py launches

@@ -8,10 +8,11 @@
     enc.close()
 
 Port of homerhevc_tpu/api.py for the configurations this package supports
-(check_slice: every performance mode at cu_size 32 and 64, fixed QP or CBR
-/ VBR rate control with per-CTU-row QPs on the quadtree path, WPP, every
-rd_mode, all-intra, and B frames at cu_size 32): IDR frames through the
-all-intra wavefront (CU = TU = 32 in FASTEST, the split-RDO quadtree with
+(check_slice: every performance mode at cu_size 32 and 64, FASTEST and
+FASTER at cu_size 16, fixed QP or CBR / VBR rate control with
+per-CTU-row QPs on the quadtree path, WPP, every rd_mode, all-intra, and
+B frames at cu_size 16 and 32): IDR frames through the all-intra
+wavefront (CU = TU = min(CTU, 32) in FASTEST, the split-RDO quadtree with
 NxN and intra TU split otherwise; a 64-CTU codes its four 32-blocks in
 z-order; rd_mode sets the mode search), P frames through the fixed-CU
 device stage (FASTEST, FASTER) or the inter CU quadtree with hierarchical
@@ -101,15 +102,19 @@ def _band_mesh(mesh, wpp_shards: int, device: torch.device):
 
 def check_slice(c: EncoderConfig) -> None:
     """Raise NotImplementedError for any setting outside the ported slice:
-    cu_size 32 and 64 in every performance mode, any bitrate_mode, WPP or
-    not, every rd_mode, IPPP, and B frames (gop_size >= 2) at cu_size 32;
-    any wpp_shards (a band mesh, see HomerEncoder); 8-bit. (The JAX package
-    has no quadtree P stage at cu_size 16: FAST and FULL fail there; its B
-    stage codes TU = CU, and at cu_size 64 asks for a 64-point DCT, which
-    HEVC does not have.)"""
+    cu_size 32 and 64 in every performance mode, cu_size 16 in FASTEST and
+    FASTER, any bitrate_mode, WPP or not, every rd_mode, IPPP, and B frames
+    (gop_size >= 2) at cu_size 16 and 32; any wpp_shards (a band mesh, see
+    HomerEncoder); 8-bit. (The JAX package has no quadtree P stage at
+    cu_size 16: FAST and FULL fail there, fault 1 of the reference in
+    ROADMAP.md; its B stage codes TU = CU, and at cu_size 64 asks for a
+    64-point DCT, which HEVC does not have.)"""
     checks = (
-        (c.cu_size == 16, f"cu_size={c.cu_size} "
-                          f"({c.performance_mode.name})"),
+        (c.cu_size == 16 and c.performance_mode
+         <= PerformanceMode.FAST_COMPUTATION,
+         f"cu_size=16 with {c.performance_mode.name} (fault 1 of the "
+         "reference: the JAX package has no quadtree P stage at CTU 16 and "
+         "raises KeyError: 32)"),
         (c.gop_size >= 2 and c.cu_size == 64,
          f"gop_size={c.gop_size} at cu_size=64 (B frames: the reference's "
          "B stage codes TU = CU and asks for a 64-point DCT)"),

@@ -13,9 +13,10 @@ reads across its edges:
     plane, so a band needs source rows of its neighbours and no
     reconstruction. A block's top reference is the row above it (one row
     above the band), and the left column of a block of size S runs 2S
-    samples down (S rows below the band at its last block row, 32 at most);
-    OPEN_LOOP_HALO holds the two, and tests/test_torch_parallel_idr_b.py
-    shows that one row fewer either way changes a map;
+    samples down (S rows below the band at its last block row: 32 where
+    pass A runs at B 32, 16 at B 16); `open_loop_halo` gives the two, and
+    tests/test_torch_parallel_idr_b.py and tests/test_torch_ctu16.py show
+    that one row fewer either way changes a map;
   * pass B: lane (r, c) of diagonal d reads the bottom row of CTU row r-1
     from column x0 - 1 to x0 + 2B - 1, coded at diagonals d-3 .. d-1, and
     its own row's left neighbour. Nothing reads across a CTU row downward,
@@ -43,26 +44,34 @@ from ..pipeline import intra_torch
 from ..pipeline.p_torch import _qp_tensor, to_plane
 from . import sharded
 
-# source rows a band's pass A reads beyond its own: (above, below)
+# source rows a band's pass A at B 32 reads beyond its own: (above, below)
 OPEN_LOOP_HALO = (1, 32)
 
 
+def open_loop_halo(B: int) -> tuple:
+    """(above, below): the source rows a band's pass A at block size B (16
+    or 32) reads beyond its own; below, the largest block's side."""
+    return OPEN_LOOP_HALO[0], min(OPEN_LOOP_HALO[1], B)
+
+
 def open_loop_maps_bands(y, rows, devs, *, qp, strong_smoothing: bool,
-                         rd_mode: int, tu_split: bool) -> list:
-    """Pass A (intra_torch._open_loop_maps) on bands of `rows` luma rows of
-    the padded luma plane `y`, band b on devs[b]: per band its (mode_u,
-    depth_u, part_u, trd_u) unit maps of its own rows, on its device. A
-    band's plane is cut from `y` with OPEN_LOOP_HALO rows beyond it, fewer
-    at the picture's top and bottom."""
+                         rd_mode: int, tu_split: bool, B: int = 32) -> list:
+    """Pass A (intra_torch._open_loop_maps at block size B, 16 or 32) on
+    bands of `rows` luma rows of the padded luma plane `y`, band b on
+    devs[b]: per band its (mode_u, depth_u, part_u, trd_u) unit maps of its
+    own rows, on its device. A band's plane is cut from `y` with
+    `open_loop_halo(B)` rows beyond it, fewer at the picture's top and
+    bottom."""
     H = y.shape[0]
+    halo = open_loop_halo(B)
     out, r0 = [], 0
     for n, dev in zip(rows, devs):
-        above = min(OPEN_LOOP_HALO[0], r0)
-        below = min(OPEN_LOOP_HALO[1], H - r0 - n)
+        above = min(halo[0], r0)
+        below = min(halo[1], H - r0 - n)
         plane = y[r0 - above:r0 + n + below].to(dev, non_blocking=True)
         qp_t = _qp_tensor(qp, dev)
         out.append(intra_torch._open_loop_maps(
-            plane, B=32, qp=qp_t, lam_fx=const(tables.LAMBDA_FX, dev)[qp_t],
+            plane, B=B, qp=qp_t, lam_fx=const(tables.LAMBDA_FX, dev)[qp_t],
             strong_smoothing=strong_smoothing, rd_mode=rd_mode,
             tu_split=tu_split, above=above, below=below))
         r0 += n
@@ -89,9 +98,9 @@ def intra_frame_bands(devs, y, u, v, *, B: int, qp,
     CU depth and, with `tu_depth`, TU split maps; SAO derived on the host,
     as the session's per-frame path does): ref_y/u/v the filtered planes
     and, with `sao`, `sao_info`."""
-    if B not in (32, 64):
-        raise NotImplementedError(f"IDR in bands at B={B} (32 and 64 are "
-                                  "ported)")
+    if B not in (16, 32, 64):
+        raise NotImplementedError(f"IDR in bands at B={B} (16, 32 and 64 "
+                                  "are ported)")
     H, W = y.shape
     dst = y.device
     rows, devs = sharded.band_rows(devs, H, B)
@@ -101,7 +110,8 @@ def intra_frame_bands(devs, y, u, v, *, B: int, qp,
     if split_rdo:
         parts = open_loop_maps_bands(y, rows, devs, qp=qp,
                                      strong_smoothing=strong_smoothing,
-                                     rd_mode=rd_mode, tu_split=tu_on)
+                                     rd_mode=rd_mode, tu_split=tu_on,
+                                     B=min(B, 32))
         maps = tuple(torch.cat([sharded._to(p[k], dst) for p in parts])
                      for k in range(4))
         tree = intra_torch.decided_tree(maps, B, tu_on)

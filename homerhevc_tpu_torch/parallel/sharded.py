@@ -319,18 +319,23 @@ def _deblock_bands(recs, outs, *, tree: bool, ctu: int, qp,
     split maps (the intra bS of a unit row reads that row's maps alone, so
     the tree's unit halo holds for it); of the fixed-CU stage, the block
     row above and below (MVs and cbf). Each band filters in zeros of the
-    span the maps cover (32 or a block row above, 16 or a block row below:
-    the TU grid and the chroma edge grid stay aligned)."""
+    span the maps cover (above: a block row, or the rows back to the 32-row
+    TU grid, 1 to 32; below: a block row, or 16 rows), so the TU grid and
+    the chroma edge grid stay aligned. The IDR's TU grid is 32 rows even at
+    CTU 16 (fault 2 of the reference), where a band may start 16 rows off
+    it."""
     nb = len(recs)
+    r0 = [0]
+    for r in recs[:-1]:
+        r0.append(r0[-1] + r[0].shape[0])
+    # unit rows above and below a band (lead: back to the 32-row grid)
+    lead_u, trail_u = [(32 - (-r) % 32) // 4 for r in r0], 4
+    units = dbk.HALO_UNITS
     if intra:
         maps = [(o["depth_units"],) if o["trd_units"] is None
                 else (o["depth_units"], o["trd_units"]) for o in outs]
-        lead_u, trail_u = 8, 4                  # unit rows (32, 16 luma)
-        units = dbk.HALO_UNITS
     elif tree:
         maps = [tuple(o[k] for k in UNIT_MAPS) for o in outs]
-        lead_u, trail_u = 8, 4                  # unit rows (32, 16 luma)
-        units = dbk.HALO_UNITS
     else:
         maps = []
         for o in outs:
@@ -341,12 +346,12 @@ def _deblock_bands(recs, outs, *, tree: bool, ctu: int, qp,
                 m += ((lev.reshape(nby, nbx, 2, 32, 2, 32) != 0)
                       .any(5).any(3),)
             maps.append(m)
-        lead_u = trail_u = 1                    # block rows
+        lead_u, trail_u = [1] * nb, 1           # block rows
         units = (1, 1)
     halo_px = (dbk.HALO_Y, dbk.HALO_C, dbk.HALO_C)
     out = []
     for b in range(nb):
-        lead = 0 if b == 0 else lead_u
+        lead = 0 if b == 0 else lead_u[b]
         trail = 0 if b == nb - 1 else trail_u
         m_up, m_down = _neighbours(maps, b, *units)
         ext = [dbk.embed_rows(m, None if m_up is None else m_up[i],
@@ -526,9 +531,9 @@ def b_frame_bands(devs, y, u, v, r0y, r0u, r0v, r1y, r1u, r1v, *, B: int,
     (b_golden.build_b_plans) over the joined arrays. The result is joined
     on y's device, the wire packed once from the joined arrays (word for
     word the single device's)."""
-    if B != 32:
-        raise NotImplementedError(f"B stage in bands at B={B} (32 is "
-                                  "ported)")
+    if B not in (16, 32):
+        raise NotImplementedError(f"B stage in bands at B={B} (16 and 32 "
+                                  "are ported)")
     dst = y.device
     rows, devs = band_rows(devs, y.shape[0], B)
     cur = cut_planes((y, u, v), rows, devs)

@@ -1,5 +1,5 @@
 """B-frame stage: two-list ME + L0/L1/BI select + residual coding, on a
-fixed CU = TU = B grid (B 32; chroma TBs 16).
+fixed CU = TU = B grid (B 16 or 32; chroma TBs B/2).
 
 Port of homerhevc_tpu/pipeline/b_jax.py (`b_frame_device`, `_subpel_list`,
 `_chroma_hp`, `_code_cu`). Per list: the integer search of the P stage

@@ -2,9 +2,9 @@
 search, or the two-pass CU quadtree (split RDO) down to 8x8 luma with NxN
 leaves and one level of intra TU split.
 
-Port of homerhevc_tpu/pipeline/intra_jax.py (`encode_frame_intra` at CTU 32
-and `encode_frame_intra_ctu64`, one function here, in every rd_mode, with
-and without `split_rdo`). The reference's `lax.fori_loop`
+Port of homerhevc_tpu/pipeline/intra_jax.py (`encode_frame_intra` at CTU 16
+and 32 and `encode_frame_intra_ctu64`, one function here, in every
+rd_mode, with and without `split_rdo`). The reference's `lax.fori_loop`
 over block anti-diagonals (skew 2, the WPP dependency pattern) becomes a
 Python loop; every block on a diagonal is processed in one batch.
 
@@ -147,7 +147,7 @@ def _open_loop_maps(y_pad, *, B: int, qp, lam_fx, strong_smoothing: bool,
                     below: int = 0):
     """Pass A of the two-pass intra quadtree: batched open-loop mode search
     and split decision over the whole frame, one dense pass per block size
-    4, 8, 16, 32.
+    from 4 up to B (16 or 32).
 
     rd_mode (the reference's HOMER_RD_MODES): 1 FULL, all 35 modes; 2 FAST,
     the 11 modes of _FAST_MODES, then the angular winner refined by +-2 and
@@ -169,9 +169,9 @@ def _open_loop_maps(y_pad, *, B: int, qp, lam_fx, strong_smoothing: bool,
     maps cover the band's own rows, its first block row sees the row above
     as available, and the left columns that run below the band read the
     rows after it; only the picture's top and bottom clamp."""
-    if B != 32:
-        raise NotImplementedError(f"split-RDO intra at B={B} (only 32 is "
-                                  "ported)")
+    if B not in (16, 32):
+        raise NotImplementedError(f"split-RDO intra at B={B} (a 64-CTU runs "
+                                  "pass A at B 32)")
     Hx, W = y_pad.shape
     H = Hx - above - below
     dev = y_pad.device
@@ -183,7 +183,7 @@ def _open_loop_maps(y_pad, *, B: int, qp, lam_fx, strong_smoothing: bool,
     mlist = const(_mode_list(rd_mode), dev)
     ov = ((lam_fx >> 4) * 14) >> 4
     best = {}
-    for S in (4, 8, 16, 32):
+    for S in (4, 8, 16, 32)[:B.bit_length() - 2]:
         nby, nbx = H // S, W // S
         ar = torch.arange(2 * S, device=dev)
         rr = torch.arange(nby, device=dev)
@@ -244,7 +244,6 @@ def _open_loop_maps(y_pad, *, B: int, qp, lam_fx, strong_smoothing: bool,
     m4, c4, v4 = best[4]
     m8, c8, v8 = best[8]
     m16, c16, v16 = best[16]
-    m32, c32, _ = best[32]
 
     def with_tu_split(c, m, vchild):
         if not tu_split:
@@ -255,24 +254,32 @@ def _open_loop_maps(y_pad, *, B: int, qp, lam_fx, strong_smoothing: bool,
 
     c8, m8, trd8 = with_tu_split(c8, m8, v4)      # 8x8 -> four DST 4x4 TBs
     c16, m16, trd16 = with_tu_split(c16, m16, v8)
-    c32, m32, trd32 = with_tu_split(c32, m32, v16)
     # NxN at the 8x8 leaf: four 4x4 PUs (part bin + 3 more mode signals)
     c4s = _sum4(c4) + (((lam_fx >> 4) * 20) >> 4)
     part8 = c4s < c8
     c8e = torch.where(part8, c4s, c8)
     c8s = _sum4(c8e) + ov
     split16 = c8s < c16
-    c16e = torch.where(split16, c8s, c16)
-    c16s = _sum4(c16e) + ov
-    split32 = c16s < c32
-    mm32, mm16 = _upu(split32, 32), _upu(split16, 16)
-    depth_u = torch.where(~mm32, 0, torch.where(~mm16, 1, 2))
-    mode_u = torch.where(~mm32, _upu(m32, 32),
-                         torch.where(~mm16, _upu(m16, 16), _upu(m8, 8)))
-    part_u = mm32 & mm16 & _upu(part8, 8)
-    trd_u = torch.where(~mm32, _upu(trd32, 32),
-                        torch.where(~mm16, _upu(trd16, 16),
-                                    _upu(trd8 & ~part8, 8)))
+    mm16 = _upu(split16, 16)
+    trd8_u = _upu(trd8 & ~part8, 8)
+    if B == 16:                      # depth 0 a 16-CU, 1 an 8-CU
+        depth_u = mm16.to(I32)
+        mode_u = torch.where(mm16, _upu(m8, 8), _upu(m16, 16))
+        part_u = mm16 & _upu(part8, 8)
+        trd_u = torch.where(mm16, trd8_u, _upu(trd16, 16))
+    else:
+        m32, c32, _ = best[32]
+        c32, m32, trd32 = with_tu_split(c32, m32, v16)
+        c16e = torch.where(split16, c8s, c16)
+        c16s = _sum4(c16e) + ov
+        split32 = c16s < c32
+        mm32 = _upu(split32, 32)
+        depth_u = torch.where(~mm32, 0, torch.where(~mm16, 1, 2))
+        mode_u = torch.where(~mm32, _upu(m32, 32),
+                             torch.where(~mm16, _upu(m16, 16), _upu(m8, 8)))
+        part_u = mm32 & mm16 & _upu(part8, 8)
+        trd_u = torch.where(~mm32, _upu(trd32, 32),
+                            torch.where(~mm16, _upu(trd16, 16), trd8_u))
     mode_u = torch.where(part_u, m4, mode_u)            # per-4x4-PU modes
     return mode_u.to(I32), depth_u.to(I32), part_u, trd_u.to(I32)
 
@@ -432,8 +439,9 @@ def _follow_unit(o, refs, aux, tree: _Followed, uy: int, ux: int, act, *,
     return torch.where(split, lev_s, lev), torch.where(split, rec_s, rec)
 
 
-def _effective_tree(depth_u, part_u, trd_u, tu_split: bool):
-    """The quadtree pass B follows, with the TU splits folded in.
+def _effective_tree(depth_u, part_u, trd_u, tu_split: bool, d8: int = 2):
+    """The quadtree pass B follows, with the TU splits folded in (`d8`: the
+    depth of an 8x8 CU, 2 in a 32-block, 1 in a 16-CTU).
 
     A leaf CU whose transform splits one level while keeping its one mode
     re-predicts each half-size TB from in-CU reconstruction, which is the
@@ -445,8 +453,8 @@ def _effective_tree(depth_u, part_u, trd_u, tu_split: bool):
     if not tu_split:
         return depth_u, part_u
     trd = trd_u > 0
-    return (depth_u + (trd & (depth_u < 2)).to(I32),
-            part_u | (trd & (depth_u == 2)))
+    return (depth_u + (trd & (depth_u < d8)).to(I32),
+            part_u | (trd & (depth_u == d8)))
 
 
 def intra_wire_cap(H: int, W: int) -> int:
@@ -568,7 +576,8 @@ def decided_tree(maps, B: int, tu_on: bool):
     and (depth, NxN) on the host, the one host copy of the decided tree
     (which nodes any lane codes)."""
     mode_u, depth_u, part_u, trd_u = maps
-    eff_depth, eff_nxn = _effective_tree(depth_u, part_u, trd_u, tu_on)
+    d8 = (min(B, 32) // 8).bit_length() - 1
+    eff_depth, eff_nxn = _effective_tree(depth_u, part_u, trd_u, tu_on, d8)
     mode_blk, depth_blk, nxn_blk = (_per_ctu(m, B) for m in
                                     (mode_u, eff_depth, eff_nxn))
     return (mode_blk, depth_blk, nxn_blk, depth_blk.cpu().numpy(),
@@ -733,9 +742,11 @@ def encode_frame_intra(y_pad, u_pad, v_pad, *, B: int, qp,
     bottom-right block has no top-right neighbour). Without `split_rdo` a
     block is CU = TU, closed-loop 35-mode search per block (the
     FASTEST_COMPUTATION IDR). With it: the CU quadtree down to 8x8 luma
-    (4x4 chroma) decided open-loop by pass A at B 32 and applied
+    (4x4 chroma) decided open-loop by pass A at min(B, 32) and applied
     closed-loop here, with NxN leaves and, for `tu_depth` >= 1, one level
-    of TU split; unit depths count from the 32-blocks. Chroma follows the
+    of TU split; unit depths count from the top-level blocks (a 16-CU is
+    depth 0 at CTU 16, where the loop filter's TU size of 32 >> depth is
+    the reference's fault 2). Chroma follows the
     luma modes, U and V as one batch. Returns `intra_result`'s dict."""
     H, W = y_pad.shape
     dev = y_pad.device

@@ -74,6 +74,35 @@ from .synth import synth_clip
 _RC8 = dict(bitrate=8, vbv_size=16, vbv_init=8)
 _RC16 = dict(bitrate=16, vbv_size=32, vbv_init=16)
 
+_FASTER16 = dict(cu_size=16, performance_mode="FASTER_COMPUTATION")
+CTU16_RUNS = {
+    "fastest16_small": dict(width=120, height=88, frames=6, seed=3, chunk=3,
+                            over=dict(cu_size=16)),
+    **{f"faster16_rd{rd}_small": dict(
+        width=120, height=88, frames=4, seed=3, chunk=3,
+        over=dict(_FASTER16, rd_mode=RDMode(rd).name)) for rd in (0, 1, 2)},
+    "faster16_tr0_small": dict(width=120, height=88, frames=4, seed=3,
+                               chunk=3, over=dict(_FASTER16,
+                                                  max_intra_tr_depth=0)),
+    "ibp_fastest16_small": dict(width=120, height=88, frames=6, seed=3,
+                                chunk=3, push=True,
+                                over=dict(cu_size=16, gop_size=2)),
+    "ibp_faster16_s64_small": dict(width=120, height=88, frames=6, seed=3,
+                                   chunk=3, push=True,
+                                   over=dict(_FASTER16, gop_size=2,
+                                             me_search_range=64)),
+    "cbr_wpp_faster16_small": dict(width=120, height=88, frames=8, seed=3,
+                                   chunk=2, over=dict(_FASTER16, **_RC8,
+                                                      bitrate_mode="CBR",
+                                                      wpp=True)),
+    "vbr_fastest16_small": dict(width=120, height=88, frames=6, seed=3,
+                                chunk=2, over=dict(_RC8, cu_size=16,
+                                                   bitrate_mode="VBR")),
+    "fastest16_s64_small": dict(width=120, height=88, frames=4, seed=3,
+                                chunk=3, over=dict(cu_size=16,
+                                                   me_search_range=64)),
+}
+
 RUNS = {
     "small": dict(width=128, height=96, frames=6, seed=3, chunk=3),
     "720p": dict(width=1280, height=720, frames=17, seed=0, chunk=8),
@@ -276,6 +305,26 @@ RUNS = {
     "mesh_ibp_scene_small": dict(width=128, height=96, frames=6, seed=3,
                                  chunk=3, push=True, cut=4, mesh=4,
                                  over=dict(gop_size=2)),
+    # CTU 16 (FASTEST and FASTER; the JAX package has no quadtree P stage
+    # there, fault 1), at a size that needs padding (120x88 -> 8 x 6 CTUs):
+    # FASTEST; FASTER in every rd_mode and without the intra TU split; IBP
+    # in FASTEST, and in FASTER at search 64 (the hierarchical search at B
+    # 16); CBR with WPP in FASTER and VBR in FASTEST; FASTEST at search 64
+    **CTU16_RUNS,
+    # each of them again on a band mesh of 4 (6 CTU rows in bands of 2, 2,
+    # 1, 1: the second band starts at row 32, the third at row 64, the
+    # fourth at row 80, off the IDR's 32-row deblocking grid)
+    **{"mesh_" + k: dict(v, mesh=4) for k, v in CTU16_RUNS.items()},
+    # the three 720p paths of chip_smoke.py at CTU 16
+    "fastest16_720p": dict(width=1280, height=720, frames=9, seed=0,
+                           chunk=8, over=dict(cu_size=16)),
+    "faster16_720p": dict(width=1280, height=720, frames=9, seed=0,
+                          chunk=8, over=dict(
+                              cu_size=16,
+                              performance_mode="FASTER_COMPUTATION")),
+    "ibp_fastest16_720p": dict(width=1280, height=720, frames=10, seed=0,
+                               chunk=8, push=True,
+                               over=dict(cu_size=16, gop_size=2)),
     # the two-process GopPipeline's streams (span 4; the IDR at POC 6 falls
     # inside the second span)
     **{f"mh_ip{ip}_small": dict(width=128, height=64, frames=8, seed=3,
@@ -325,6 +374,11 @@ CLI_RUNS = {
     "cli_allintra64_small": dict(
         width=192, height=128, frames=2, seed=3, write_raw=True,
         args=("-gop_size", "0", "-cu_size", "64", "-rd", "2", "-sao", "0")),
+    # CTU 16 in FASTEST (the CLI's default mode, FAST, stays refused there)
+    "cli_fastest16_small": dict(
+        width=120, height=88, frames=5, seed=3, write_raw=True,
+        args=("-cu_size", "16", "-performance_mode", "3", "-sao", "1",
+              "-sign_hiding", "1", "-metrics")),
     # BASELINE.md configuration 4 at the reference's default operating point
     # (1250 kbps, rd FAST, SAO and sign hiding), in FASTEST, with a scene cut
     "cli_cbr_scene_fastest_1080p": dict(
@@ -372,6 +426,17 @@ INTRA_CASES = {
     "96x64_tu0": dict(width=96, height=64, tu_depth=0, seed=5),
     "128x96_tu1": dict(width=128, height=96, tu_depth=1, seed=5),
     "128x96_tu0": dict(width=128, height=96, tu_depth=0, seed=5),
+}
+# single frames through encode_frame_intra at B 16: the split-RDO IDR
+# (pass A and pass B) in every rd_mode with and without the TU split, and
+# the fixed-CU IDR (FASTEST's, the 35-mode battery per 16-block) in rd_mode
+# FULL and FAST; the frame is intra_frame(width, height, seed=5)
+INTRA16_CASES = {
+    **{f"split_rd{rd}_tu{tu}": dict(width=96, height=64, split=True,
+                                    rd_mode=rd, tu_depth=tu, seed=5)
+       for rd in (0, 1, 2) for tu in (0, 1)},
+    **{f"fixed_rd{rd}": dict(width=96, height=64, split=False, rd_mode=rd,
+                             tu_depth=0, seed=5) for rd in (1, 2)},
 }
 INTRA_KEYS = ("wire", "modes", "mode_units", "depth_units", "part_units",
               "trd_units", "lev_y", "lev_u", "lev_v", "recon_y", "recon_u",

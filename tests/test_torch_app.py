@@ -25,7 +25,8 @@ homer_app_torch.py) and its session surface against the JAX package's CLI
                   run on the GPU by chip_smoke.py): the JAX CLI's stream
                   re-encodes frame 5 as a scene-change IDR and decodes in
                   libde265 to its own reconstruction
-  surface         write_annex_b writes b"".join(aus); -cu_size 16 exits
+  surface         write_annex_b writes b"".join(aus); -cu_size 16 in the
+                  default -performance_mode (FAST, fault 1) exits
                   non-zero with the NotImplementedError's message and writes
                   no file; the flags and their defaults are homer_app.py's
                   (less -backend, plus -device); read_yuv_frames reads what

@@ -21,8 +21,8 @@ torch port against the JAX package, on the CPU:
                                   the fixture
   check_slice                     admits every rd_mode at CTU 32 and 64,
                                   and wpp_shards > 1 (no mesh on the CPU);
-                                  refuses cu_size 16 and bit_depth != 8 by
-                                  name
+                                  refuses FAST at cu_size 16 and
+                                  bit_depth != 8 by name
 
 rd_mode acts on the intra path only: neither package's P stage reads it.
 Inputs are made from a seed with numpy. Tolerance: exact equality.
@@ -170,7 +170,9 @@ def test_check_slice_admits_every_rd_mode(cu_size, rd_mode):
 
 
 @pytest.mark.parametrize("over, what", [
-    (dict(cu_size=16), "cu_size=16"),
+    # FAST at CTU 16 stays refused (fault 1 of the reference); FASTEST and
+    # FASTER are ported there
+    (dict(cu_size=16, performance_mode="FAST_COMPUTATION"), "cu_size=16"),
     (dict(wpp_shards=2), "wpp_shards=2"),
     (dict(bit_depth=10), "bit_depth=10"),
 ])

@@ -9,7 +9,8 @@ versions) against homerhevc_tpu.api.HomerEncoder(backend="jax").
   * seed_reference carries a P chain over: both sessions seeded from the
     same planes give byte-identical P AUs;
   * settings outside the ported configurations raise NotImplementedError
-    (rd_mode FAST and B frames at cu_size 32 are admitted)
+    (rd_mode FAST, B frames at cu_size 32 and FASTEST at cu_size 16 are
+    admitted)
     (the quadtree configurations are in tests/test_torch_session_fast.py,
     CTU 64 and FULL_COMPUTATION in tests/test_torch_ctu64.py and
     tests/test_torch_cu8.py); CBR and WPP are admitted (their streams are
@@ -29,7 +30,7 @@ import pytest
 
 from homerhevc_tpu.api import HomerEncoder as JaxEncoder
 from homerhevc_tpu_torch.api import HomerEncoder
-from homerhevc_tpu_torch.config import BitrateMode, RDMode
+from homerhevc_tpu_torch.config import BitrateMode, PerformanceMode, RDMode
 from homerhevc_tpu_torch.utils import fixtures as fx
 from test_torch_ctu64 import one_torch_thread  # noqa: F401 (autouse)
 
@@ -138,20 +139,23 @@ def test_seed_reference_carry_over(small):
     ("rd_mode", RDMode.FAST),
 ])
 def test_out_of_slice_settings_raise(small, field, value):
-    # every rd_mode is ported, and B frames at cu_size 32: those two are
-    # admitted here, and B frames raise at cu_size 64; wpp_shards is
-    # admitted (a CPU session builds no mesh: it has no CUDA devices)
+    # every rd_mode is ported, B frames at cu_size 32, and this FASTEST
+    # configuration at cu_size 16: those are admitted here, and B frames
+    # raise at cu_size 64, FAST at cu_size 16; wpp_shards is admitted (a
+    # CPU session builds no mesh: it has no CUDA devices)
     cfg = dataclasses.replace(small[3], **{field: value})
     if field == "wpp_shards":
         enc = HomerEncoder(cfg, device="cpu")
         assert enc._mesh is None
         enc.close()
         return
-    if field in ("rd_mode", "gop_size"):
+    if field in ("rd_mode", "gop_size", "cu_size"):
         HomerEncoder(cfg, device="cpu").close()
         if field == "rd_mode":
             return
-        cfg = dataclasses.replace(cfg, cu_size=64)
+        cfg = dataclasses.replace(cfg, **(
+            dict(cu_size=64) if field == "gop_size" else
+            dict(performance_mode=PerformanceMode.FAST_COMPUTATION)))
     with pytest.raises(NotImplementedError, match=field):
         HomerEncoder(cfg, device="cpu")
 

@@ -15,9 +15,10 @@ for byte.
     max_intra_tr_depth=0, and at 120x88 (padded to 128x96);
   * every stream decodes in libde265 to the port's reconstruction;
   * encode_frame frame by frame equals encode_frames; seed_reference
-    continues a FAST P chain; the settings still outside (cu_size 16 in
-    every mode among them) raise NotImplementedError naming the setting
-    (every rd_mode, and B frames at cu_size 32, are admitted).
+    continues a FAST P chain; the settings still outside (FAST and FULL at
+    cu_size 16 among them) raise NotImplementedError naming the setting
+    (every rd_mode, B frames at cu_size 32, and FASTEST and FASTER at
+    cu_size 16 are admitted).
 """
 
 import contextlib
@@ -225,10 +226,20 @@ def test_settings_inside_are_admitted(mode, search):
                                   "FASTEST_COMPUTATION"])
 def test_cu16_raises(mode):
     # the JAX package has no quadtree P stage at CTU 16 (FAST and FULL fail
-    # there); no mode is ported at cu_size 16
+    # there: fault 1 of the reference), so those stay refused; FASTEST and
+    # FASTER are ported at cu_size 16 and code a small clip (their bytes:
+    # tests/test_torch_ctu16.py)
     cfg = fx.fast_config(128, 96, cu_size=16, performance_mode=mode)
-    with pytest.raises(NotImplementedError, match="cu_size=16"):
-        HomerEncoder(cfg, device="cpu")
+    if mode in ("FAST_COMPUTATION", "FULL_COMPUTATION"):
+        with pytest.raises(NotImplementedError, match="cu_size=16"):
+            HomerEncoder(cfg, device="cpu")
+        return
+    enc = HomerEncoder(cfg, device="cpu")
+    aus = enc.encode_frames(fx.clip("fast_small")[:3], chunk=2)
+    enc.close()
+    assert len(aus) == 3 and all(au[:4] == b"\x00\x00\x00\x01"
+                                 for au in aus)
+    assert enc.ctu == 16 and enc.params.ctu_log2 == 4
 
 
 @pytest.mark.parametrize("field,value", [

@@ -15,10 +15,12 @@ Run on the CPU:
     python tools/make_torch_fixtures.py --merge FILE [FILE ...]
 
 With no run named every run and every intra case is computed anew; with
-names (of RUNS or INTRA_CASES) only those are computed and the other entries
-of the file are kept as they are (the 720p runs take minutes each on a CPU,
-and every new shape, transform depth or rd_mode of the split-RDO IDR
-compiles for about three minutes at CTU 32 and forty at CTU 64). `--out`
+names (of RUNS, INTRA_CASES, CLI_RUNS, SHARDED_CASES, or a case of
+INTRA16_CASES as "intra16_" + its name) only those are computed and the
+other entries of the file are kept as they are (the 720p runs take
+minutes each on a CPU, and every new shape, transform depth or rd_mode
+of the split-RDO IDR compiles for about three minutes at CTU 32 and forty
+at CTU 64). `--out`
 reads and writes FILE instead of the fixture, so independent runs can go in
 separate processes; `--merge` copies the runs of such files into the
 fixture. A run marked "push" in RUNS goes through push_frame and flush.
@@ -29,8 +31,10 @@ libde265 check of the .265 against the -o-raw file. A run with a band mesh
 (`mesh` or wpp_shards in RUNS) is coded by the JAX session with its mesh and
 without, and the two must be equal. A case of SHARDED_CASES goes through
 the JAX package's make_p_frame_sharded and its single-device stage; its
-entry under "sharded" holds the SHA-256 of each output of both. The tool
-gives JAX 8 virtual CPU devices, as tests/conftest.py does.
+entry under "sharded" holds the SHA-256 of each output of both. A case of
+INTRA16_CASES goes through the JAX package's IDR stage at B 16; its entry
+under "intra16" holds the SHA-256 of each output array. The tool gives JAX
+8 virtual CPU devices, as tests/conftest.py does.
 """
 
 from __future__ import annotations
@@ -152,19 +156,21 @@ def jax_sharded_case(name: str) -> dict:
                 for k in SHARDED_KEYS})
 
 
-def jax_intra_case(name: str) -> dict:
-    """SHA-256 per output array of the JAX package's split-RDO IDR stage for
-    one of the port's INTRA_CASES."""
+def jax_intra_case(c: dict, B: int = 32) -> dict:
+    """SHA-256 per output array of the JAX package's IDR stage
+    (encode_frame_intra at block size B) for one of the port's INTRA_CASES
+    (split RDO, rd_mode FULL) or INTRA16_CASES (B 16, the case's split and
+    rd_mode)."""
     import jax.numpy as jnp
 
     from homerhevc_tpu.pipeline import intra_jax
-    from homerhevc_tpu_torch.utils.fixtures import (INTRA_CASES, INTRA_KEYS,
-                                                    array_digest, intra_frame)
-    c = INTRA_CASES[name]
+    from homerhevc_tpu_torch.utils.fixtures import (INTRA_KEYS, array_digest,
+                                                    intra_frame)
     frame = intra_frame(c["width"], c["height"], c["seed"])
     out = intra_jax.encode_frame_intra(
-        *map(jnp.asarray, frame), B=32, qp=32, sign_hiding=True,
-        split_rdo=True, rd_mode=1, tu_depth=c["tu_depth"])
+        *map(jnp.asarray, frame), B=B, qp=32, sign_hiding=True,
+        split_rdo=c.get("split", True), rd_mode=c.get("rd_mode", 1),
+        tu_depth=c["tu_depth"])
     return {k: array_digest(out[k]) for k in INTRA_KEYS}
 
 
@@ -202,13 +208,16 @@ def jax_cli(name: str) -> dict:
 
 
 def _write(path: str, out: dict) -> None:
-    from homerhevc_tpu_torch.utils.fixtures import (CLI_RUNS, INTRA_CASES,
-                                                    RUNS, SHARDED_CASES)
+    from homerhevc_tpu_torch.utils.fixtures import (CLI_RUNS, INTRA16_CASES,
+                                                    INTRA_CASES, RUNS,
+                                                    SHARDED_CASES)
     intra = out.pop("intra_split", {})
+    intra16 = out.pop("intra16", {})
     cli = out.pop("cli", {})
     shard = out.pop("sharded", {})
     out = {name: out[name] for name in RUNS if name in out}
     out["intra_split"] = {n: intra[n] for n in INTRA_CASES if n in intra}
+    out["intra16"] = {n: intra16[n] for n in INTRA16_CASES if n in intra16}
     out["cli"] = {n: cli[n] for n in CLI_RUNS if n in cli}
     out["sharded"] = {n: shard[n] for n in SHARDED_CASES if n in shard}
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
@@ -217,8 +226,9 @@ def _write(path: str, out: dict) -> None:
         f.write("\n")
     print(f"wrote {path}: " + ", ".join(
         f"{k} {len(v['aus'])} AUs" for k, v in out.items()
-        if k not in ("intra_split", "cli", "sharded"))
-        + f", intra_split {len(out['intra_split'])} cases, cli "
+        if k not in ("intra_split", "intra16", "cli", "sharded"))
+        + f", intra_split {len(out['intra_split'])} cases, intra16 "
+        f"{len(out['intra16'])} cases, cli "
         f"{len(out['cli'])} runs, sharded {len(out['sharded'])} cases")
 
 
@@ -230,6 +240,7 @@ def merge(paths) -> int:
         with open(p) as f:
             part = json.load(f)
         out.setdefault("intra_split", {}).update(part.pop("intra_split", {}))
+        out.setdefault("intra16", {}).update(part.pop("intra16", {}))
         out.setdefault("cli", {}).update(part.pop("cli", {}))
         out.setdefault("sharded", {}).update(part.pop("sharded", {}))
         out.update(part)
@@ -238,16 +249,16 @@ def merge(paths) -> int:
 
 
 def main(argv) -> int:
-    from homerhevc_tpu_torch.utils.fixtures import (CLI_RUNS, INTRA_CASES,
-                                                    RUNS, SHARDED_CASES,
-                                                    au_digest)
+    from homerhevc_tpu_torch.utils.fixtures import (CLI_RUNS, INTRA16_CASES,
+                                                    INTRA_CASES, RUNS,
+                                                    SHARDED_CASES, au_digest)
     if argv[:1] == ["--merge"]:
         return merge(argv[1:])
     path = OUT
     if argv[:1] == ["--out"]:
         path, argv = argv[1], argv[2:]
     known = (list(RUNS) + list(INTRA_CASES) + list(CLI_RUNS)
-             + list(SHARDED_CASES))
+             + list(SHARDED_CASES) + ["intra16_" + n for n in INTRA16_CASES])
     names = argv or known
     unknown = [n for n in names if n not in known]
     if unknown:
@@ -258,10 +269,15 @@ def main(argv) -> int:
         with open(path) as f:
             out = json.load(f)
     intra = out.pop("intra_split", {})
+    intra16 = out.pop("intra16", {})
     cli = out.pop("cli", {})
     shard = out.pop("sharded", {})
     for name in names:
-        if name in RUNS:
+        if name.startswith("intra16_"):
+            case = INTRA16_CASES[name[len("intra16_"):]]
+            intra16[name[len("intra16_"):]] = dict(
+                case, arrays=jax_intra_case(case, B=16))
+        elif name in RUNS:
             out[name] = dict(RUNS[name], aus=au_digest(jax_run(name)))
         elif name in CLI_RUNS:
             cli[name] = jax_cli(name)
@@ -269,9 +285,10 @@ def main(argv) -> int:
             shard[name] = jax_sharded_case(name)
         else:
             intra[name] = dict(INTRA_CASES[name],
-                               arrays=jax_intra_case(name))
+                               arrays=jax_intra_case(INTRA_CASES[name]))
         print(f"{name}: done", flush=True)
     out["intra_split"] = intra
+    out["intra16"] = intra16
     out["cli"] = cli
     out["sharded"] = shard
     _write(path, out)

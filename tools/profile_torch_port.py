@@ -1,7 +1,8 @@
 """Where the time goes in the torch port on one GPU at 1280x720.
 
     python3 tools/profile_torch_port.py [fastest|fast|default|full64|cbr|
-                                         ibp_fastest|ibp_fast]
+                                         ibp_fastest|ibp_fast|fastest16|
+                                         faster16]
                                         [--idr-ctus RxC] [--no-idr-profile]
                                         [--no-idr]
 
@@ -19,6 +20,8 @@ B1 is profiled alone: its device stage (b_torch.b_frame_device) under the
 profiler, then each host step of the session's B frame between
 synchronising timers (the wire copy, the merge/AMVP walk build_b_plans, the
 AU assembly) beside the whole B frame; nothing else runs in these modes.
+`fastest16` and `faster16` are `fastest` at cu_size 16 and FASTER at
+cu_size 16 (the split-RDO IDR on 16-CTUs, the fixed-CU P stage at B 16).
 
 For one P chunk of 8 frames (device stage only, no host CABAC) and for one
 IDR device stage, after a warm-up, torch.profiler (CPU + CUDA activities)
@@ -35,7 +38,8 @@ Its launches go with the diagonals of the wavefront (every lane of a
 diagonal is one batch), not with the picture's area, so by default it is
 profiled on the top-left 3 x 8 CTUs of the picture (12 diagonals against 84)
 and the launches per diagonal are printed (at CTU 64 on the top-left 2 x 4
-CTUs, 6 diagonals against 42); its wall time on the whole picture is still
+CTUs, 6 diagonals against 42; at CTU 16 on the top-left 6 x 16 CTUs, the
+same area, 26 diagonals against 168); its wall time on the whole picture is still
 printed, unprofiled. `--idr-ctus RxC` sets the crop (`0x0`: the whole
 picture, the default for `fastest`), `--no-idr` leaves out both the IDR's
 timing and its profile (the session still codes one IDR for the reference
@@ -135,11 +139,12 @@ def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("config", nargs="?", default="fast",
                     choices=("fastest", "fast", "default", "full64", "cbr",
-                             "ibp_fastest", "ibp_fast"))
+                             "ibp_fastest", "ibp_fast", "fastest16",
+                             "faster16"))
     ap.add_argument("--idr-ctus", default=None, metavar="RxC",
                     help="profile the IDR on the top-left R x C CTUs only "
-                         "(default: 3x8 at CTU 32, 2x4 at CTU 64, 0x0 = "
-                         "whole for fastest)")
+                         "(default: 3x8 at CTU 32, 2x4 at CTU 64, 6x16 at "
+                         "CTU 16, 0x0 = whole for fastest)")
     ap.add_argument("--no-idr-profile", action="store_true")
     ap.add_argument("--no-idr", action="store_true")
     args = ap.parse_args(argv)
@@ -168,6 +173,9 @@ def main(argv) -> int:
             w, h, bitrate_mode="CBR", bitrate=400, wpp=True),
         "ibp_fastest": lambda w, h: fx.slice_kwargs(w, h, gop_size=2),
         "ibp_fast": lambda w, h: fx.fast_kwargs(w, h, gop_size=2),
+        "fastest16": lambda w, h: fx.slice_kwargs(w, h, cu_size=16),
+        "faster16": lambda w, h: fx.slice_kwargs(
+            w, h, cu_size=16, performance_mode="FASTER_COMPUTATION"),
     }[args.config](1280, 720))
     print(f"configuration {args.config}: {cfg.performance_mode.name}, "
           f"cu_size {cfg.cu_size}, search {cfg.me_search_range}, on {card}",
@@ -243,15 +251,15 @@ def main(argv) -> int:
 
         def pass_a(y):
             return intra_torch._open_loop_maps(
-                y, B=32, qp=qp_t, lam_fx=lam, strong_smoothing=True,
-                tu_split=bool(tu))
+                y, B=enc.intra_b, qp=qp_t, lam_fx=lam,
+                strong_smoothing=True, tu_split=bool(tu))
 
         ms_a = _synced_ms(lambda: pass_a(y0))
         line += f", pass A {ms_a:.1f} ms, pass B {ms - ms_a:.1f} ms"
     print(line, flush=True)
     if not args.no_idr_profile:
         ctu = enc.ctu
-        crop = args.idr_ctus or (("2x4" if enc.ctu64 else "3x8")
+        crop = args.idr_ctus or ({64: "2x4", 32: "3x8", 16: "6x16"}[ctu]
                                  if enc.intra_split else "0x0")
         rows, cols = (int(v) for v in crop.split("x"))
         planes, what = whole, "whole picture"
