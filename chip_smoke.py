@@ -109,6 +109,21 @@ Phases, each of which raises on failure (non-zero exit, no result line):
                scene-cut attempt); the same frames through
                HomerEncoder(cfg, kernels=False).encode_frame must give the
                same stream and launch nothing
+               then the CUDA graphs of the fixed-CU P step
+               (pipeline/p_graph.py) at the benchmark's configuration
+               (hevc_bench/configs/ldp_1080p_fastest.json: 1920x1080,
+               CTU 64, search 64, FASTEST, SAO) on synth_clip(1920, 1080,
+               33): 24 P frames after the IDR through encode_frames(chunk
+               8) and through encode_frame, each against a session whose
+               fixed-CU step is called directly (its graphs set to None):
+               AUs and final reference planes identical, P_GRAPH 1
+               capture, 1 eager (warm-up) frame and 23 replays a path,
+               gather_win 3 per frame; the ms per P frame of both steps,
+               host clock over 16 frames ending in a synchronise, and of
+               the 8 frames that warm up and capture; then torch.profiler
+               over 8 graphed and 8 direct frames of each path: the gather
+               kernels it sees equal to GATHER_WIN's count, kernels and
+               busy device ms per frame, the kernels whose count differs
   5. mesh    — multi-device on the one card: make_p_frame_sharded on a
                mesh naming the card lanes x bands times (720p at B 64, 2
                lanes x 4 bands; 1080p at B 32 with search 64, 2 bands),
@@ -171,6 +186,7 @@ both).
 from __future__ import annotations
 
 import dataclasses
+import enum
 import json
 import os
 import shutil
@@ -2115,6 +2131,178 @@ def pass_a_timing(dev, name, y, cfg, tu_split: bool, card: str,
     return ms_a
 
 
+GRAPH_CONFIG = os.path.join(ROOT, "hevc_bench", "configs",
+                            "ldp_1080p_fastest.json")
+
+
+def graph_config():
+    """The benchmark's 1080p configuration (its `encoder` keywords, enums by
+    value) with the batch traffic's two chunks in flight."""
+    from homerhevc_tpu_torch.config import EncoderConfig
+    with open(GRAPH_CONFIG) as f:
+        kw = dict(json.load(f)["encoder"], frame_pipeline_depth=2)
+    defaults = EncoderConfig()
+    for k, v in kw.items():
+        cur = getattr(defaults, k)
+        if isinstance(cur, enum.Enum):
+            kw[k] = type(cur)(v)
+    return EncoderConfig(**kw)
+
+
+def trace_device(fn) -> dict:
+    """torch.profiler (CPU and CUDA) over fn(): the kernels that ran on the
+    card (copies and sets left out) by name, the port's gather kernels
+    among them (by the names hevc_bench's reader matches) and the device's
+    busy milliseconds (the union of its kernels, copies and sets)."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans, names = [], collections.Counter()
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type().name != "CUDA":
+            continue
+        spans.append((ev.start_ns(), ev.start_ns() + ev.duration_ns()))
+        if not ev.name().startswith(("Memcpy", "Memset")):
+            names[ev.name()] += 1
+    gathers = sum(n for name, n in names.items()
+                  if ("gather_kernel<" in name or "gather_span_kernel" in name
+                      or "gather_generic_kernel" in name)
+                  and "at::native" not in name)
+    busy, end = 0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return dict(names=names, kernels=sum(names.values()), gathers=gathers,
+                busy_ms=busy * 1e-6)
+
+
+def phase_graphs(dev, card: str) -> None:
+    """The fixed-CU P step's CUDA graphs at the benchmark's configuration:
+    24 P frames through each path, graphed against the step called
+    directly, then 8 more of each under the profiler; see the module
+    docstring, phase 4."""
+    import torch
+
+    from homerhevc_tpu_torch.api import HomerEncoder
+    from homerhevc_tpu_torch.ops.gather import GATHER_WIN
+    from homerhevc_tpu_torch.pipeline.p_graph import P_GRAPH
+    from homerhevc_tpu_torch.utils.synth import synth_clip
+
+    cfg = graph_config()
+    frames = list(synth_clip(cfg.width, cfg.height, 33, seed=0))
+    enc = HomerEncoder(cfg, device=dev)
+    idr = enc.encode_frame(*frames[0])
+    ref0 = tuple(p.cpu().numpy() for p in enc._ref)
+    enc.close()
+    n_gather = 3                 # luma G 73, the chroma pair G 35, refine
+    paths = ("chunk", "frame")
+    how = {True: "graphed", False: "step called directly"}
+
+    def session(graphed: bool):
+        enc = HomerEncoder(cfg, device=dev, fetch_recon=False)
+        if enc._graphs is None:
+            raise AssertionError("a CUDA session with no mesh has no graphs")
+        if not graphed:
+            enc._graphs = None       # the step called directly
+        enc.seed_reference(ref0, poc=1, last_idr=0)
+        return enc
+
+    def code(enc, path, lo, hi):
+        if path == "chunk":
+            return enc.encode_frames(frames[lo:hi], chunk=8)
+        return [enc.encode_frame(*f) for f in frames[lo:hi]]
+
+    ms = {}
+    for path in paths:
+        runs = {}
+        for graphed in (True, False):
+            enc = session(graphed)
+            counts = dict(vars(P_GRAPH))
+            g0 = GATHER_WIN.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            aus = code(enc, path, 1, 9)          # warm-up, capture
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            aus += code(enc, path, 9, 25)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            moved = {k: v - counts[k] for k, v in vars(P_GRAPH).items()}
+            gathers = GATHER_WIN.launches - g0
+            want = (dict(captures=1, replays=23, eager=1) if graphed
+                    else dict(captures=0, replays=0, eager=0))
+            if moved != want or gathers != n_gather * 24:
+                raise AssertionError(f"graphs, {path}, {how[graphed]}: "
+                                     f"P_GRAPH moved {moved}, expected "
+                                     f"{want}; gather_win {gathers} "
+                                     f"launches, expected {n_gather * 24}")
+            runs[graphed] = (aus, tuple(p.cpu() for p in enc._ref))
+            ms[path, graphed] = (t2 - t1) * 1e3 / 16
+            log(f"  graphs, {path} path, {how[graphed]}: frames 1-8 "
+                f"(warm-up{' and capture' if graphed else ''}) "
+                f"{(t1 - t0) * 1e3:.1f} ms, frames 9-24 "
+                f"{ms[path, graphed]:.2f} ms per P frame; P_GRAPH moved "
+                f"{moved} on {card}")
+            enc.close()
+        if runs[True][0] != runs[False][0]:
+            bad = [i for i, (a, b) in enumerate(zip(*(runs[g][0]
+                                                      for g in (True, False))))
+                   if a != b]
+            raise AssertionError(f"graphs, {path}: graphed AUs differ from "
+                                 f"the direct step's at P frames {bad}")
+        if not all(torch.equal(a, b) for a, b in zip(runs[True][1],
+                                                     runs[False][1])):
+            raise AssertionError(f"graphs, {path}: reference planes differ")
+        log(f"  graphs, {path} path: 24 P AUs byte-identical to the direct "
+            f"step's ({sum(len(a) for a in runs[True][0])} bytes; IDR "
+            f"{len(idr)} bytes), reference planes equal; ms per P frame "
+            f"{ms[path, True]:.2f} graphed, {ms[path, False]:.2f} direct")
+
+    # the profiler last: once it has run, its hooks slow the host for the
+    # rest of the process
+    for path in paths:
+        names = {}
+        for graphed in (True, False):
+            enc = session(graphed)
+            code(enc, path, 1, 9)                # warm-up, capture
+            g0 = GATHER_WIN.launches
+            tr = trace_device(lambda: code(enc, path, 9, 17))
+            if tr["gathers"] != GATHER_WIN.launches - g0:
+                raise AssertionError(
+                    f"graphs, {path}, {how[graphed]}: the profiler saw "
+                    f"{tr['gathers']} gather kernels, GATHER_WIN counted "
+                    f"{GATHER_WIN.launches - g0}")
+            names[graphed] = tr["names"]
+            log(f"  graphs, {path} path, {how[graphed]}, traced 8 frames: "
+                f"{tr['kernels'] / 8:.2f} kernels and "
+                f"{tr['busy_ms'] / 8:.3f} busy device ms per frame, "
+                f"{tr['gathers']} gather kernels == GATHER_WIN's count")
+            enc.close()
+        diff = {name[:100]: (names[True][name] - names[False][name]) / 8
+                for name in names[True] | names[False]
+                if names[True][name] != names[False][name]}
+        log(f"  graphs, {path} path: kernels per frame, graphed less "
+            f"direct, by name: {diff}")
+
+    # what feeding the reference by copy costs the device per frame (the
+    # graph reads the planes from its own buffers)
+    planes = tuple(torch.as_tensor(p, device=dev) for p in ref0)
+    dst = tuple(torch.empty_like(p) for p in planes)
+    ms = cuda_ms(lambda: [d.copy_(p) for d, p in zip(dst, planes)], 50)
+    log(f"  graphs: the three reference planes' copy into the graph's "
+        f"inputs {ms * 1e3:.2f} us on {card}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2172,6 +2360,8 @@ def main() -> int:
         "CLI:")
     workdir = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     by_path[CLI_PATH] = run_cli_path(dev, fixture, workdir)
+    log("[4/6] CUDA graphs of the fixed-CU P step at 1920x1080:")
+    phase_graphs(dev, card)
     log("[5/6] multi-device on the one card (meshes that name it several "
         "times; two processes sharing it):")
     phase_mesh(dev, fixture, by_path, card)

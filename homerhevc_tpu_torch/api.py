@@ -34,6 +34,7 @@ configuration object of another package raises TypeError.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -46,7 +47,7 @@ from .ops.inter_golden import derive_block_decisions_fast
 from .ops.sao import sao_stage_device
 from .parallel import intra_bands, sharded
 from .pipeline import (assemble, b_golden, b_torch, intra_torch, p_chunk,
-                       p_torch)
+                       p_graph, p_torch)
 from .rate_control import RateControl
 from .utils.profiler import NULL
 
@@ -67,6 +68,30 @@ def _tree_decisions(depth_u, mv_u, nz_u, ctu_log2: int, n_cand: int = 5,
     tests/test_torch_host.py)."""
     return native_backend.derive_tree_decisions_native(
         depth_u, mv_u, nz_u, ctu_log2, n_cand, pred_intra_u=pred_intra_u)
+
+
+def _fixed_p_step(y, u, v, ref_y, ref_u, ref_v, qp, *, deblock: bool, **kw):
+    """p_torch.p_frame_device as a tuple: the wire, then the reference
+    planes it leaves (loop-filtered with `deblock`, else the
+    reconstruction)."""
+    out = p_torch.p_frame_device(y, u, v, ref_y, ref_u, ref_v, qp=qp,
+                                 deblock=deblock, **kw)
+    key = "ref" if deblock else "recon"
+    return out["wire"], out[key + "_y"], out[key + "_u"], out[key + "_v"]
+
+
+def _nz_units(lev_y, lev_u, lev_v) -> np.ndarray:
+    """Per 4x4 luma unit, whether its luma 4x4 block or either chroma 2x2
+    block holds a nonzero level: each unit row's 4 (2) flags are read as
+    one 32-bit (16-bit) word, which numpy ORs whole, where a reduction over
+    the short block axes takes many times longer."""
+    uh, uw = lev_y.shape[0] // 4, lev_y.shape[1] // 4
+    y = (lev_y != 0).view(np.uint32).reshape(uh, 4, uw)
+    nz = (y[:, 0] | y[:, 1] | y[:, 2] | y[:, 3]) != 0
+    for lev in (lev_u, lev_v):
+        c = (lev != 0).view(np.uint16).reshape(uh, 2, uw)
+        nz |= (c[:, 0] | c[:, 1]) != 0
+    return nz
 
 
 def _device(d) -> torch.device:
@@ -250,6 +275,10 @@ class HomerEncoder:
         # copy of chunk k overlaps compute of chunk k+1 on the main stream
         self._copy_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
+        # the fixed-CU P step on one CUDA device replays from CUDA graphs
+        self._graphs = (p_graph.StepGraphs()
+                        if p_graph.engaged(self.device) and self._mesh is None
+                        else None)
 
     # ------------------------------------------------------------------
     def _upload(self, a: np.ndarray) -> torch.Tensor:
@@ -420,15 +449,25 @@ class HomerEncoder:
                         sao: bool = False) -> dict:
         """The fixed-CU P stage of one frame against `ref` (p_torch.
         p_frame_device's result); with a mesh in bands, the loop filter too,
-        SAO as well when `sao` is on (sharded.p_frame_bands)."""
+        SAO as well when `sao` is on (sharded.p_frame_bands). Through the
+        session's graphs the result holds the wire, which the next replay
+        overwrites (the caller fetches it first), and copies of the
+        reference planes."""
         c = self.cfg
-        kw = dict(B=self.ctu, qp=qp, search=c.me_search_range,
+        kw = dict(B=self.ctu, search=c.me_search_range,
                   me_precision=int(c.motion_estimation_precision),
                   deblock=deblock, sign_hiding=c.sign_hiding,
                   kernels=self.kernels)
-        if self._mesh is None:
-            return p_torch.p_frame_device(*cur, *ref, **kw)
-        return sharded.p_frame_bands(self._mesh, *cur, *ref, sao=sao, **kw)
+        if self._mesh is not None:
+            return sharded.p_frame_bands(self._mesh, *cur, *ref, qp=qp,
+                                         sao=sao, **kw)
+        if self._graphs is None:
+            return p_torch.p_frame_device(*cur, *ref, qp=qp, **kw)
+        wire, *planes = self._graphs.run(
+            functools.partial(_fixed_p_step, **kw), (*cur, *ref, qp))
+        key = "ref" if deblock else "recon"
+        return dict(wire=wire, **{f"{key}_{comp}": p.clone()
+                                  for comp, p in zip("yuv", planes)})
 
     def _p_ref_and_sao(self, out, qp):
         """A P frame's (or, on the mesh, an IDR's) loop-filtered reference
@@ -784,22 +823,28 @@ class HomerEncoder:
                 cap=self._chunk_cap, tree=self.inter_split,
                 qp_rows=(None if row_plans is None
                          else self._upload(row_plans.astype(np.int32))),
-                mesh=self._mesh, **self._tree_kwargs())
+                mesh=self._mesh, graphs=self._graphs,
+                **self._tree_kwargs())
         self._ref = (fy, fu, fv)
-        host, done = wires, None
+        host, dense_h, done = wires, denses, None
         if self._copy_stream is not None:
-            # start the device-to-host copy now, on the side stream, ordered
-            # after this chunk's work only
+            # start the device-to-host copies now, on the side stream,
+            # ordered after this chunk's work only: the wires, and the dense
+            # levels a frame over the wire's capacity reads (fetched when it
+            # is found, they would wait for the chunks queued behind)
             self._copy_stream.wait_stream(torch.cuda.current_stream(
                 self.device))
             with torch.cuda.stream(self._copy_stream):
-                host = torch.empty(wires.shape, dtype=wires.dtype,
-                                   pin_memory=True)
+                host, dense_h = (torch.empty(t.shape, dtype=t.dtype,
+                                             pin_memory=True)
+                                 for t in (wires, denses))
                 host.copy_(wires, non_blocking=True)
+                dense_h.copy_(denses, non_blocking=True)
                 done = torch.cuda.Event()
                 done.record(self._copy_stream)
             wires.record_stream(self._copy_stream)
-        return idxs, qps, host, done, denses, row_plans
+            denses.record_stream(self._copy_stream)
+        return idxs, qps, host, done, dense_h, row_plans
 
     def _finish_chunk(self, pending, aus, frames):
         """Host side of one dispatched chunk: unpack, decisions, CABAC.
@@ -813,7 +858,6 @@ class HomerEncoder:
                 done.synchronize()
             wires_h = host.numpy()
         cap = self._chunk_cap
-        uh, uw = self.ph // 4, self.pw // 4
         for row_i, (fi, qp) in enumerate(zip(idxs, qps)):
             w = p_chunk.unpack_wire(wires_h[row_i], self.ph, self.pw, ctu,
                                     cap, fine=self.inter_cu8)
@@ -838,7 +882,7 @@ class HomerEncoder:
                             self.pw))
                 else:                               # capacity overflow
                     self.chunk_overflows += 1
-                    d = denses[row_i].cpu().numpy()
+                    d = denses[row_i].numpy()
                     npix = self.ph * self.pw
                     lev_y = (d[:npix].reshape(self.ph, self.pw)
                              .astype(np.int32))
@@ -855,9 +899,7 @@ class HomerEncoder:
             intra_u = np.repeat(np.repeat(w["intra16"], g, 0), g, 1)
             mv_u = np.repeat(np.repeat(w["mv16"], g, 0), g, 1)
             if nz is None:
-                nz = (np.any(lev_y.reshape(uh, 4, uw, 4) != 0, axis=(1, 3))
-                      | np.any(lev_u.reshape(uh, 2, uw, 2) != 0, axis=(1, 3))
-                      | np.any(lev_v.reshape(uh, 2, uw, 2) != 0, axis=(1, 3)))
+                nz = _nz_units(lev_y, lev_u, lev_v)
             qp_rows = None if row_plans is None else row_plans[row_i]
             with prof.probe("chunk.decisions"):
                 maps = self._tree_maps(depth_u, mv_u, nz, trd_u, intra_u,
@@ -887,6 +929,7 @@ class HomerEncoder:
     def close(self) -> None:
         self._ref = None
         self._cur_dev = None
+        self._graphs = None
 
     def __enter__(self):
         return self

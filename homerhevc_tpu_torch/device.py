@@ -54,6 +54,14 @@ def edge_pad(plane: torch.Tensor, pad: int,
     return plane[ys][:, xs]
 
 
+def take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table[idx] for a 1-D table and an integer index tensor of any shape,
+    gathered on the device in one launch: PyTorch's indexing reads a 0-d
+    index tensor on the host (a wait for the device, which a CUDA graph's
+    capture refuses), and casts an int32 index to int64 first."""
+    return table.index_select(0, idx.reshape(-1)).reshape(idx.shape)
+
+
 _CONST: dict = {}
 
 

@@ -68,12 +68,18 @@ def build_all(names) -> list:
         return list(pool.map(build_library, names))
 
 
+KERNELS: list = []               # every CudaKernel, in order of creation
+
+
 class CudaKernel:
     """One kernel library: lazy build + bind, launch with error check, and
-    a count of launches (`launches`, incremented once per kernel launch and
-    nowhere else) so a run can show the main path went through it."""
+    a count of launches (`launches`) so a run can show the main path went
+    through it. It counts launches as the device runs them: one per eager
+    `launch`; a launch recorded into a CUDA graph counts on each replay of
+    the graph, not at its capture (pipeline/p_graph.py)."""
 
     def __init__(self, name: str, argtypes, floor_argtypes):
+        KERNELS.append(self)
         self.name = name
         self.source = f"homerhevc_tpu_torch/kernels/{name}.cu"
         self.argtypes = list(argtypes)

@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from .. import tables
-from ..device import const, shl
+from ..device import const, shl, take
 
 I32 = torch.int32
 
@@ -33,7 +33,7 @@ def quantize(coeff: torch.Tensor, qp, log2_size: int, *, is_intra: bool,
     q = _qp(qp, coeff)
     tshift = tables.MAX_TR_DYNAMIC_RANGE - bit_depth - log2_size
     qbits = tables.QUANT_SHIFT + q // 6 + tshift
-    scale = const(tables.QUANT_SCALES, coeff.device)[q % 6]
+    scale = take(const(tables.QUANT_SCALES, coeff.device), q % 6)
     add = shl(171 if is_intra else 85, qbits - 9)
     c = coeff.to(I32)
     level = ((c.abs() * scale + add) >> qbits).clamp(0, 32767)
@@ -48,7 +48,7 @@ def dequantize(level: torch.Tensor, qp, log2_size: int,
     bd_shift = bit_depth + log2_size - 5
     k = q // 6
     scale = const(tables.INV_QUANT_SCALES, level.device)
-    t = level.to(I32) * (scale[q % 6] * 16)
+    t = level.to(I32) * (take(scale, q % 6) * 16)
     k_c = torch.clamp(k, max=bd_shift - 1)
     lo = (t + shl(1, bd_shift - 1 - k_c)) >> (bd_shift - k_c)
     hi = t << torch.clamp(k - bd_shift, min=0)
@@ -96,7 +96,7 @@ def sign_bit_hiding(levels: torch.Tensor, coeffs: torch.Tensor, qp,
                                lead).reshape(L, 1, 1)
         q = q.repeat_interleave(K, 0)
     qbits = tables.QUANT_SHIFT + q // 6 + tshift
-    scale = const(tables.QUANT_SCALES, dev)[q % 6]
+    scale = take(const(tables.QUANT_SCALES, dev), q % 6)
 
     # (L, K, n*n) in scan order -> L*K blocks of G groups
     ls = levels.to(I32).reshape(L, n * n)[:, scan].reshape(L * K, G, 16)

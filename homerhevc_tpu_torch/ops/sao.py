@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from .. import tables
-from ..device import const, first_argmin
+from ..device import const, first_argmin, take
 from .sao_host import EO_NEIGHBORS, MAX_OFFSET
 from .sao_host import derive_all_from_stats as derive_all_np
 
@@ -225,8 +225,8 @@ def derive_all_from_stats(st_y, st_cb, st_cr, qp, qp_c, slice_p=False):
     exactly as the reference's derivation."""
     dev = st_y[0].device
     fx = const(tables.LAMBDA_FX_P if slice_p else tables.LAMBDA_FX, dev)
-    lam_y = fx[torch.clamp(qp, max=51)]
-    lam_c = fx[torch.clamp(qp_c, max=51)]
+    lam_y = take(fx, torch.clamp(qp, max=51))
+    lam_c = take(fx, torch.clamp(qp_c, max=51))
     ccy = _component_costs_from_stats(*st_y, lam_y)
     ccb = _component_costs_from_stats(*st_cb, lam_c)
     ccr = _component_costs_from_stats(*st_cr, lam_c)

@@ -22,6 +22,8 @@ host sync, no scatter with colliding indices.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -115,12 +117,65 @@ def _frame_wire(depth_u, trd_u, intra_u, mv_u, sad, pp, lev_planes,
         vals8.reshape(-1), erow.to(I32), evals32.reshape(-1)])
 
 
+def fixed_frame(y, u, v, ref_y, ref_u, ref_v, qp, *, ctu: int, cap: int,
+                deblock: bool, sao: bool, **stage):
+    """One fixed-CU P frame on one device: the P stage against the uint8
+    reference planes, its loop filter and its wire. `stage`: `_p_stage`'s
+    search, me_precision, sign_hiding and kernels. Returns (wire row, dense
+    level row, the filtered reference planes as uint8)."""
+    H, W = y.shape
+    dev = y.device
+    padded = (edge_pad(ref_y.to(torch.int16), PAD),
+              edge_pad(ref_u.to(torch.int16), PAD // 2),
+              edge_pad(ref_v.to(torch.int16), PAD // 2))
+    res = p_torch._p_stage(y, u, v, *padded, qp=qp, B=ctu, **stage)
+    zeros = torch.zeros((H // 4, W // 4), dtype=I32, device=dev)
+    mv_u = p_torch._upu(res["mvs"], ctu)
+    lev = tuple(p_torch.to_plane(res[key])
+                for key in ("lev_y", "lev_u", "lev_v"))
+    rec = tuple(res[key].to(I32) for key in ("recon_y", "recon_u", "recon_v"))
+    if deblock:
+        rec = p_torch.inter_deblock(rec, res["mvs"], res["lev_y"], qp, ctu)
+    if sao:
+        qp_c = tables.chroma_qp_t(qp)
+        # the reference filters the uint8 loop-filter output
+        pp, rec = _sao_device((y.to(I32), u.to(I32), v.to(I32)), rec, ctu,
+                              qp, qp_c)
+    else:
+        pp = torch.zeros((3, H // ctu, W // ctu), dtype=I32, device=dev)
+    wire = _frame_wire(zeros, zeros, zeros, mv_u, res["sad"], pp, lev, cap)
+    dense = torch.cat([p.to(torch.int16).reshape(-1) for p in lev])
+    return (wire, dense, *(p.to(torch.uint8) for p in rec))
+
+
+def _fixed_chunk(ys, us, vs, ref, qps, graphs, **kw):
+    """The fixed-CU chunk on one device: `fixed_frame` per frame, called
+    directly, or run through the session's `graphs`
+    (pipeline/p_graph.py), whose output buffers the next replay
+    overwrites: each frame's rows and the last reference planes are
+    copied out of them."""
+    step = functools.partial(fixed_frame, **kw)
+    wires, denses = [], []
+    for k in range(ys.shape[0]):
+        args = (ys[k], us[k], vs[k], *ref, qps[k])
+        if graphs is None:
+            wire, dense, *ref = step(*args)
+        else:
+            wire, dense, *ref = graphs.run(step, args)
+            wire, dense = wire.clone(), dense.clone()
+        wires.append(wire)
+        denses.append(dense)
+    if graphs is not None:
+        ref = [p.clone() for p in ref]
+    return (torch.stack(wires), torch.stack(denses), *ref)
+
+
 def p_chunk_device(ys, us, vs, ref_y, ref_u, ref_v, qps, *, ctu: int,
                    search: int, me_precision: int, sign_hiding: bool,
                    deblock: bool, sao: bool, cap: int, tree: bool = False,
                    tr_split: bool = False, intra_in_p: bool = False,
                    cu8: bool = False, qp_rows=None, wpp: bool = False,
-                   vis=None, kernels: bool = True, mesh=None):
+                   vis=None, kernels: bool = True, mesh=None, graphs=None):
     """Encode K consecutive P frames on the device.
 
     ys (K, H, W) uint8 etc., ref_* uint8 planes, qps (K,) int32 on the
@@ -132,18 +187,23 @@ def p_chunk_device(ys, us, vs, ref_y, ref_u, ref_v, qps, *, ctu: int,
     and the loop filter run in bands on its devices (parallel/sharded.py),
     each band keeping its filtered reference rows from frame to frame; the
     wire is built on the planes' device, and the reference planes are
-    joined there at the chunk's end. Returns
+    joined there at the chunk's end. The fixed-CU stage on one device runs
+    each frame through `graphs` (the session's p_graph.StepGraphs) where
+    it is given. Returns
     (wires (K, L) int32, denses (K, D) int16 dense level planes for the
     capacity-overflow fallback, final reference planes)."""
     K, H, W = ys.shape
     dev = ys.device
     uh, uw = H // 4, W // 4
     ref = (ref_y, ref_u, ref_v)
+    common = dict(search=search, me_precision=me_precision,
+                  sign_hiding=sign_hiding, kernels=kernels)
+    if not tree and mesh is None:
+        return _fixed_chunk(ys, us, vs, ref, qps, graphs, ctu=ctu, cap=cap,
+                            deblock=deblock, sao=sao, **common)
     if mesh is not None:
         rows, devs = sharded.band_rows(mesh, H, ctu)
         ref = sharded.cut_planes(ref, rows, devs)
-    common = dict(search=search, me_precision=me_precision,
-                  sign_hiding=sign_hiding, kernels=kernels)
     stage = dict(common, B=ctu)
     wires, denses = [], []
     for k in range(K):
@@ -156,9 +216,7 @@ def p_chunk_device(ys, us, vs, ref_y, ref_u, ref_v, qps, *, ctu: int,
             padded = (edge_pad(ref[0].to(torch.int16), PAD),
                       edge_pad(ref[1].to(torch.int16), PAD // 2),
                       edge_pad(ref[2].to(torch.int16), PAD // 2))
-            res = (p_torch._p_stage_tree(y, u, v, *padded, qp=qp, **tree_kw)
-                   if tree else p_torch._p_stage(y, u, v, *padded, qp=qp,
-                                                 **stage))
+            res = p_torch._p_stage_tree(y, u, v, *padded, qp=qp, **tree_kw)
         else:
             cur = sharded.cut_planes((y, u, v), rows, devs)
             outs = (sharded._band_stage_tree(cur, ref, qp, **tree_kw)
@@ -184,11 +242,8 @@ def p_chunk_device(ys, us, vs, ref_y, ref_u, ref_v, qps, *, ctu: int,
         else:
             rec = tuple(res[key].to(I32)
                         for key in ("recon_y", "recon_u", "recon_v"))
-            if deblock and tree:
+            if deblock:
                 rec = p_torch.tree_deblock(rec, res, ctu)
-            elif deblock:
-                rec = p_torch.inter_deblock(rec, res["mvs"], res["lev_y"],
-                                            qp, ctu)
             if sao:
                 qp_c = tables.chroma_qp_t(qp)
                 # the reference filters the uint8 loop-filter output

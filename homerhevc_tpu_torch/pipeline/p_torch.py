@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from .. import tables
-from ..device import I32, const, edge_pad, first_argmin
+from ..device import I32, const, edge_pad, first_argmin, take
 from ..ops import deblock as dbk
 from ..ops import interp
 from ..ops import intra as intra_ops
@@ -95,7 +95,7 @@ def _p_stage(y_pad, u_pad, v_pad, ry, ru, rv, *, B: int, qp, search: int,
     dev = y_pad.device
     qp = _qp_tensor(qp, dev)
     qp_c = tables.chroma_qp_t(qp)
-    lam = const(tables.LAMBDA_ME_FX_P, dev)[qp]
+    lam = take(const(tables.LAMBDA_ME_FX_P, dev), qp)
     cur = y_pad.to(I32)
     if search > HIER_THRESHOLD:
         ivy, ivx, best_cost = _me_hier(cur, ry, sizes=(B,), search=search,
@@ -314,7 +314,7 @@ def _level_encode(cur, u_pad, v_pad, ry, ru, rv, ivy, ivx, *, S, qp, qp_c,
         ssd_c = ((orig - rec) * (orig - rec)).sum(dim=(-1, -2))
         ssd_s = ((orig - pred) * (orig - pred)).sum(dim=(-1, -2))
         bits = torch.clamp(tables.level_bits_est_t(lev), max=16383)
-        lamf = lam_full_t[qpq]              # 0-d, or (nb,) with row QPs
+        lamf = take(lam_full_t, qpq)        # 0-d, or (nb,) with row QPs
         lamf = lamf.reshape(lamf.shape + (1,) * (bits.dim() - lamf.dim()))
         keep = (ssd_c + (((lamf >> 4) * bits) >> 4) < ssd_s)[..., None, None]
         return torch.where(keep, lev, 0), torch.where(keep, rec, pred)
@@ -369,7 +369,7 @@ def _level_encode(cur, u_pad, v_pad, ry, ru, rv, ivy, ivx, *, S, qp, qp_c,
     lev_y, rec_y = code(blk, pred_y, qp, log2)
     lev_u, rec_u = code(blk_u, pred_u, qp_c, log2 - 1, cmax_tb)
     lev_v, rec_v = code(blk_v, pred_v, qp_c, log2 - 1, cmax_tb)
-    lamf = lam_full_t[qp]
+    lamf = take(lam_full_t, qp)
     trd = torch.zeros((nb,), dtype=I32, device=dev)
     if tr_split and S == 32:
         # inter residual quadtree, depth 1: re-code the CU as four

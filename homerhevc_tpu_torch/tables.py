@@ -24,7 +24,7 @@ import functools
 import numpy as np
 import torch
 
-from .device import const
+from .device import const, take
 
 # ---------------------------------------------------------------------------
 # Transform matrices (spec 8.6.4.2)
@@ -352,7 +352,7 @@ def chroma_qp_t(qp: torch.Tensor) -> torch.Tensor:
     t = const(CHROMA_QP_TABLE, qp.device)
     return torch.where(qp < 30, qp,
                        torch.where(qp > 43, qp - 6,
-                                   t[qp.clamp(30, 43) - 30]))
+                                   take(t, qp.clamp(30, 43) - 30)))
 
 
 @functools.lru_cache(maxsize=None)

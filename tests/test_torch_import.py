@@ -46,6 +46,7 @@ PORT_MODULES = [
     "homerhevc_tpu_torch.pipeline.intra_torch",
     "homerhevc_tpu_torch.pipeline.p_torch",
     "homerhevc_tpu_torch.pipeline.p_chunk",
+    "homerhevc_tpu_torch.pipeline.p_graph",
     "homerhevc_tpu_torch.pipeline.b_golden",
     "homerhevc_tpu_torch.pipeline.b_torch",
     "homerhevc_tpu_torch.pipeline.assemble",
